@@ -1,0 +1,98 @@
+"""The C51 Bellman projection op.
+
+``support`` is the fixed atom grid. ``categorical_projection`` projects
+the Bellman-shifted target distribution back onto it: on a CUDA tensor
+it launches the kernel of ``csrc/categorical_projection.cu`` (the
+gather, or hat, form of the TPU kernel), on a CPU tensor it runs the
+plain scatter version of ``kernels/ref.py``. The two agree to float
+rounding (they add in another order); the op runs on a detached target,
+so it needs no backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import (
+    categorical_projection as categorical_projection_plain)
+
+__all__ = ["MAX_ATOMS", "linspace", "support", "categorical_projection",
+           "categorical_projection_plain"]
+
+MAX_ATOMS = 512
+
+
+def linspace(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """jnp.linspace's float32 formula, made on the device: start*(1-s) +
+    stop*s on s = iota/(num-1), then the exact endpoint. (torch.linspace
+    rounds differently; XLA's CPU code may differ from this by an ulp.)"""
+    if num == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    s = (torch.arange(div, dtype=torch.float32, device=device)
+         / torch.full((), float(div), dtype=torch.float32, device=device))
+    out = start * (1.0 - s) + stop * s
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
+
+
+def support(num_atoms: int, v_min: float, v_max: float,
+            device=None) -> torch.Tensor:
+    """The (K,) atom grid z_j = v_min + jΔ; K == 1 is the single atom
+    v_min."""
+    return linspace(v_min, v_max, num_atoms, device)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("categorical_projection")
+    fn = lib.categorical_projection
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def categorical_projection(probs: torch.Tensor, rewards: torch.Tensor,
+                           dones: torch.Tensor, *, v_min: float, v_max: float,
+                           gamma_n: float) -> torch.Tensor:
+    """probs: (B, K) float32; rewards: (B,) float32; dones: (B,) bool or
+    float. Returns the (B, K) float32 projected masses. CUDA tensors go
+    through the kernel (launches counted in
+    ``categorical_projection.launches``), CPU tensors through the plain
+    version."""
+    d32 = dones.to(torch.float32)
+    if probs.device.type == "cpu":
+        return categorical_projection_plain(probs, rewards, d32, v_min=v_min,
+                                            v_max=v_max, gamma_n=gamma_n)
+    if probs.dim() != 2 or probs.dtype != torch.float32:
+        raise ValueError(f"probs must be (B, K) float32, got "
+                         f"{tuple(probs.shape)} {probs.dtype}")
+    B, K = probs.shape
+    if not 1 <= K <= MAX_ATOMS:
+        raise ValueError(f"atom count {K} outside [1, {MAX_ATOMS}]")
+    if rewards.shape != (B,) or dones.shape != (B,) \
+            or rewards.dtype != torch.float32:
+        raise ValueError("rewards and dones must be (B,), rewards float32")
+    if rewards.device != probs.device or dones.device != probs.device:
+        raise ValueError("probs, rewards and dones must share a device")
+    delta = (v_max - v_min) / (K - 1) if K > 1 else 0.0
+    db = delta if delta > 0.0 else 1.0
+    probs = probs.contiguous()
+    rewards = rewards.contiguous()
+    d32 = d32.contiguous()
+    out = torch.empty((B, K), dtype=torch.float32, device=probs.device)
+    stream = torch.cuda.current_stream(probs.device).cuda_stream
+    err = _lib().categorical_projection(
+        probs.data_ptr(), rewards.data_ptr(), d32.data_ptr(), out.data_ptr(),
+        B, K, v_min, v_max, gamma_n, delta, db, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"categorical_projection kernel launch failed: CUDA error {err}")
+    categorical_projection.launches += 1
+    return out
+
+
+categorical_projection.launches = 0
