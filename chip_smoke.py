@@ -6,15 +6,16 @@
 Phases, each printing its own lines:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc,
-   sm_90a), with the build time;
+2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
+   per source, sm_90a, all in parallel), with the build time;
 3. kernel parity on the card against the plain PyTorch versions, at the
-   main path's shapes and at edge cases: the segment tree bit for bit,
-   the C51 projection to 1e-6;
-4. kernel times from CUDA events (median of 200 launches) beside the
-   plain versions' times, a one-call PyTorch yardstick where one exists,
-   and the bound the card's peak rates set;
-5. the main path: ConcurrentTrainer on examples/specs/dqn_nature84.json
+   main paths' shapes and at edge cases: the segment tree bit for bit,
+   the C51 projection to 1e-6, RMSNorm, flash attention and decode
+   attention to 2e-4 in float32 and 2e-2 in bfloat16;
+4. kernel times from CUDA events (median of up to 200 launches) beside
+   the plain versions' times, a one-call PyTorch yardstick where one
+   exists, and the bound the card's peak rates set;
+5. the DQN path: ConcurrentTrainer on examples/specs/dqn_nature84.json
    with the rainbow variant (84x84x4 pong frames, the Nature CNN, W=8,
    C=512, F=2, a 16384-slot replay): init_carry, 2 cycles and one eval,
    with each kernel's launches counted, then one torch.profiler capture
@@ -22,9 +23,21 @@ Phases, each printing its own lines:
 6. agreement with the port's CPU path (held against the JAX reference
    by tests/test_torch_cycle.py) on a small rainbow configuration;
 7. determinism: two runs of one full-size cycle from one carry are
-   bitwise equal.
+   bitwise equal;
+8. the serve path: mistral-nemo-12b at full width in bfloat16 through
+   the serve launcher's own functions (batch 8, a 1024-token fused
+   prefill, 64 greedy tokens), with init, prefill, decode and memory
+   figures and each kernel's launches counted; then a ring-cache run
+   (window 16, prompt 32, 32 tokens) and one decode step under CUDA's
+   sync check (the host never waits for the card between steps);
+9. agreement of the serve path with its CPU path (held against the JAX
+   reference by tests/test_torch_transformer.py) on reduced
+   mistral-nemo-12b in float32: equal greedy tokens, logits within 1e-3.
 
-The line before the last is the kernels' JSON record; the last line is
+Every kernel's launches in the JSON record are those of its own path's
+run (phase 5 for the DQN kernels, the full-cache run of phase 8 for the
+serve kernels), with all counts set to 0 just before that run. The line
+before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
 printing it. Without a CUDA device, or without the repository's src/
 beside it, the script fails.
@@ -49,9 +62,15 @@ import torch  # noqa: E402
 
 SPEC = ROOT / "examples" / "specs" / "dqn_nature84.json"
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
-# tensor cores
+# tensor cores, bf16 dense on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+# the serve path's run: mistral-nemo-12b at full width, bf16
+SERVE_ARCH = "mistral-nemo-12b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
+RING_PROMPT, RING_GEN, RING_WINDOW = 32, 32, 16
+LLM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 TIMED_RUNS = 200
 # C of the profiled cycle: 4 synchronized rounds and 16 updates at W=8, F=2
 PROFILED_STEPS = 32
@@ -259,8 +278,7 @@ def phase_main_path(dev):
     trainer = ConcurrentTrainer(spec, device="cuda")
     C = spec.schedule.cycle_steps
     per_cycle = C // spec.algo.train_period
-    st.segment_tree_sample.launches = 0
-    cp.categorical_projection.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     carry = trainer.init_carry()
     torch.cuda.synchronize()
@@ -289,8 +307,10 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     say(f"main eval: {time.perf_counter() - t0:.2f} s, return "
         f"{float(evals[0]):+.3f} over {spec.schedule.eval_episodes} streams")
-    launches = {"segment_tree": st.segment_tree_sample.launches,
-                "categorical_projection": cp.categorical_projection.launches}
+    launches = read_launches()
+    check(launches["rmsnorm"] == launches["flash_attention"]
+          == launches["decode_attention"] == 0,
+          f"the DQN path launched a serve kernel: {launches}")
     check(torch.isfinite(evals).all().item(), "non-finite eval return")
     for path, t in _paths(carry, "carry"):
         check(t.device.type == "cuda", f"{path} is on {t.device}")
@@ -413,6 +433,371 @@ def phase_determinism(trainer, carry):
     say(f"determinism: two cycles from one carry bitwise equal ({n} tensors)")
 
 
+def kernel_table():
+    """name -> (wrapper with a ``launches`` count, CUDA source, the TPU
+    kernel it replaces), for every kernel of the port."""
+    from repro_torch.kernels import categorical_projection as cp
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import segment_tree as st
+    csrc = "src/repro_torch/kernels/csrc/"
+    tpu = "src/repro/kernels/"
+    return {
+        "segment_tree": (st.segment_tree_sample, csrc + "segment_tree.cu",
+                         tpu + "segment_tree.py:95"),
+        "categorical_projection": (
+            cp.categorical_projection, csrc + "categorical_projection.cu",
+            tpu + "categorical_projection.py:98"),
+        "rmsnorm": (rn.rmsnorm, csrc + "rmsnorm.cu", tpu + "rmsnorm.py:33"),
+        "flash_attention": (fa.flash_attention, csrc + "flash_attention.cu",
+                            tpu + "flash_attention.py:97"),
+        "decode_attention": (da.decode_attention,
+                             csrc + "decode_attention.cu",
+                             tpu + "decode_attention.py:74"),
+    }
+
+
+def reset_launches() -> None:
+    for fn, _, _ in kernel_table().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in kernel_table().items()}
+
+
+def _randn(gen: torch.Generator, shape, dtype, dev):
+    return torch.randn(shape, generator=gen).to(device=dev, dtype=dtype)
+
+
+def _llm_check(name, got, want, dtype, case) -> float:
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} at {case}: {got.dtype} {tuple(got.shape)}, plain "
+          f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    tol = LLM_TOL[dtype]
+    check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=tol,
+                                                            rtol=tol),
+          f"{name} differs from the plain version at {case} {dtype}: max "
+          f"abs err {err} (tolerance {tol})")
+    return err
+
+
+def phase_llm_parity(dev):
+    """The serve path's three kernels against their plain versions, in
+    float32 and bfloat16; returns each one's max abs error in bf16 at
+    the serve path's own shapes."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator().manual_seed(2)
+    errs = {}
+    path = {"rmsnorm": (SERVE_BATCH * SERVE_PROMPT, 5120),
+            "flash_attention": (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128, None),
+            "decode_attention": (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_GEN,
+                                 128, SERVE_PROMPT + SERVE_GEN)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, D in (path["rmsnorm"], (7, 96)):
+            x = _randn(gen, (rows, D), dtype, dev)
+            g = _randn(gen, (D,), torch.float32, dev)
+            err = _llm_check("rmsnorm", rn.rmsnorm(x, g, 1e-5),
+                             rn.rmsnorm_plain(x, g, 1e-5), dtype, (rows, D))
+            if (rows, D) == path["rmsnorm"] and dtype == torch.bfloat16:
+                errs["rmsnorm"] = err
+        for B, S, H, Hkv, D in ((2, 300, 32, 8, 128), (1, 256, 24, 2, 128),
+                                (1, 128, 4, 1, 80), (2, 200, 8, 2, 64),
+                                path["flash_attention"][:5]):
+            q = _randn(gen, (B, S, H, D), dtype, dev)
+            k = _randn(gen, (B, S, Hkv, D), dtype, dev)
+            v = _randn(gen, (B, S, Hkv, D), dtype, dev)
+            for window in (None, 64):
+                if S == SERVE_PROMPT and window is not None:
+                    continue
+                err = _llm_check(
+                    "flash_attention", fa.flash_attention(q, k, v, True, window),
+                    fa.flash_attention_plain(q, k, v, True, window), dtype,
+                    (B, S, H, Hkv, D, window))
+                if ((B, S, H, Hkv, D, window) == path["flash_attention"]
+                        and dtype == torch.bfloat16):
+                    errs["flash_attention"] = err
+            del q, k, v
+        for B, H, Hkv, L, D, n in ((8, 32, 8, 1088, 128, 1),
+                                   (8, 32, 8, 1088, 128, 517),
+                                   path["decode_attention"],
+                                   (8, 32, 8, 16, 128, 40),   # ring, wrapped
+                                   (2, 24, 2, 1088, 128, 517)):
+            q = _randn(gen, (B, 1, H, D), dtype, dev)
+            kc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
+            vc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
+            nd = torch.full((), n, dtype=torch.int32, device=dev)
+            err = _llm_check("decode_attention",
+                             da.decode_attention(q, kc, vc, nd),
+                             da.decode_attention_plain(q, kc, vc, nd), dtype,
+                             (B, H, Hkv, L, D, n))
+            if (B, H, Hkv, L, D, n) == path["decode_attention"] and \
+                    dtype == torch.bfloat16:
+                errs["decode_attention"] = err
+    say("parity rmsnorm, flash_attention, decode_attention: within 2e-4 "
+        "(float32) and 2e-2 (bfloat16) at the serve path's shapes and at "
+        "S=300, GQA 12, MQA with D=80, window 64, cache_len 1/517/1088 and "
+        "a wrapped ring; max abs err in bf16 at the path's shapes: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def _library(fn):
+    """A PyTorch yardstick call, timed with deterministic algorithms off
+    (it is no part of the port)."""
+    torch.use_deterministic_algorithms(False)
+    try:
+        return time_ms(fn, runs=50)
+    finally:
+        torch.use_deterministic_algorithms(True)
+
+
+def phase_llm_times(dev):
+    """Kernel, plain and yardstick times of the serve path's kernels at
+    its shapes (bf16), with the bytes and operations the bound counts."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator().manual_seed(3)
+    bf = torch.bfloat16
+    out = {}
+    # rmsnorm at the prefill's rows: read x once, write once, read gamma;
+    # 4 float32 operations per element (square-add, two products, and the
+    # cast), on the f32 units
+    rows, D = SERVE_BATCH * SERVE_PROMPT, 5120
+    x = _randn(gen, (rows, D), bf, dev)
+    g = _randn(gen, (D,), torch.float32, dev)
+    g16 = g.to(bf)
+    k_ms = time_ms(lambda: rn.rmsnorm(x, g, 1e-5))
+    p_ms = time_ms(lambda: rn.rmsnorm_plain(x, g, 1e-5), runs=50)
+    l_ms = _library(lambda: F.rms_norm(x, (D,), g16, 1e-5))
+    out["rmsnorm"] = (k_ms, p_ms, l_ms, 2 * rows * D * 2 + D * 4,
+                      4 * rows * D, PEAK_F32_PER_S, (rows, D))
+    del x
+    # flash attention at the prefill: q, k, v read once, out written once;
+    # the causal triangle needs 4 D operations per (query, key) pair (QK^T
+    # and PV), in bf16 on the tensor cores
+    B, S, H, Hkv, D = SERVE_BATCH, SERVE_PROMPT, 32, 8, 128
+    q = _randn(gen, (B, S, H, D), bf, dev)
+    k = _randn(gen, (B, S, Hkv, D), bf, dev)
+    v = _randn(gen, (B, S, Hkv, D), bf, dev)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms = time_ms(lambda: fa.flash_attention(q, k, v, True, None), runs=50)
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, None),
+                   runs=20)
+    l_ms = _library(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True))
+    out["flash_attention"] = (k_ms, p_ms, l_ms,
+                              (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2,
+                              4 * D * B * H * S * (S + 1) // 2,
+                              PEAK_BF16_PER_S, (B, S, H, Hkv, D))
+    del q, k, v, qh, kh, vh
+    # decode attention at the last decode step: q read and out written
+    # once, the n valid rows of both caches read once; 4 D operations per
+    # (query head, position)
+    L = n = SERVE_PROMPT + SERVE_GEN
+    q = _randn(gen, (B, 1, H, D), bf, dev)
+    kc = _randn(gen, (B, Hkv, L, D), bf, dev)
+    vc = _randn(gen, (B, Hkv, L, D), bf, dev)
+    nd = torch.full((), n, dtype=torch.int32, device=dev)
+    mask = (torch.arange(L, device=dev) < nd).reshape(1, 1, 1, L)
+    qh = q.transpose(1, 2).contiguous()
+    k_ms = time_ms(lambda: da.decode_attention(q, kc, vc, nd))
+    p_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, nd), runs=50)
+    l_ms = _library(lambda: F.scaled_dot_product_attention(
+        qh, kc, vc, attn_mask=mask, enable_gqa=True))
+    out["decode_attention"] = (k_ms, p_ms, l_ms,
+                               (2 * B * H * D + 2 * B * Hkv * n * D) * 2 + 4,
+                               4 * D * B * H * n, PEAK_BF16_PER_S,
+                               (B, H, Hkv, L, D, n))
+    del q, kc, vc
+    for name, (k_ms, p_ms, l_ms, nbytes, nops, _, shape) in out.items():
+        say(f"time {name} at {shape} bf16: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms, {nbytes} bytes, {nops} "
+            f"operations")
+    return out
+
+
+def _kernel_class(name: str) -> str:
+    for key, cls in (("flash_fwd", "flash_attention"),
+                     ("decode_fwd", "decode_attention"),
+                     ("rmsnorm_rows", "rmsnorm")):
+        if key in name:
+            return cls
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "elementwise and other"
+
+
+def profile_classes(label: str, fn, steps: int = 1) -> None:
+    """One torch.profiler capture of ``fn``: wall time, kernel launches
+    and device time by kernel class, per step."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    launch = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"}
+    dev, n_launch, by_name = {}, 0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            cls = _kernel_class(e.name)
+            dev[cls] = dev.get(cls, 0.0) + e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0) + 1
+        elif e.name in launch:
+            n_launch += 1
+    busy = sum(dev.values())
+    check(busy <= wall_us, f"{label}: device busy {busy:.0f} us exceeds the "
+          f"wall {wall_us:.0f} us")
+    say(f"profile {label} (per step, over {steps}; the profiler slows the "
+        f"host): wall {wall_us / steps / 1e3:.3f} ms, {n_launch // steps} "
+        f"launches, device busy {busy / steps / 1e3:.3f} ms "
+        f"({100 * busy / wall_us:.1f}%)"
+        if busy > 0 else f"profile {label}: device time not measured (no "
+        f"device events recorded)")
+    for cls, us in sorted(dev.items(), key=lambda kv: -kv[1]):
+        say(f"profile {label} {cls}: {us / steps / 1e3:.3f} ms "
+            f"({100 * us / busy:.1f}% of device time)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    say(f"profile {label} most launched kernels (per step): " + "; ".join(
+        f"{n / steps:g} x {name[:60]}" for name, n in top))
+
+
+
+def _serve_args(*extra):
+    from repro_torch.launch import serve
+    return serve.parse_args(["--arch", SERVE_ARCH, *extra])
+
+
+def phase_serve(dev):
+    """mistral-nemo-12b at full width, bf16, through the serve launcher's
+    functions: a fused prefill and greedy decode, then a ring run."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run(_serve_args(
+        "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len",
+        str(SERVE_PROMPT), "--gen", str(SERVE_GEN)))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = res["cfg"]
+    toks = res["tokens"]
+    n_sb = cfg.n_superblocks
+    steps = SERVE_GEN - 1
+    want = {"segment_tree": 0, "categorical_projection": 0,
+            "rmsnorm": (2 * n_sb + 1) * (1 + steps), "flash_attention": n_sb,
+            "decode_attention": n_sb * steps}
+    check(launches == want, f"serve launches {launches}, expected {want}")
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+          and toks.dtype == torch.int32 and toks.device.type == "cuda",
+          f"generated {toks.dtype} {tuple(toks.shape)} on {toks.device}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          "a generated token lies outside the vocabulary")
+    check(bool(torch.isfinite(res["prefill_logits"]).all()),
+          "non-finite prefill logits")
+    say(f"serve {SERVE_ARCH} full width bf16 ({res['param_count']} "
+        f"parameters), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_GEN} tokens: init {res['init_s']:.2f} s, prefill "
+        f"{res['prefill_ms']:.1f} ms, decode {res['decode_ms_per_step']:.2f} "
+        f"ms/step, {res['tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB")
+    say(f"serve launches (prefill + {steps} decode steps): {launches}")
+    params = res["params"]
+    # where a prefill's and a decode step's time goes (the decode steps go
+    # on from the run's cache; past its end the slot clamps to the last)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(4)
+                            ).to(dev)
+    profile_classes("prefill", lambda: T.forward(
+        cfg, res["ec"], params, prompts,
+        collect_cache_len=SERVE_PROMPT + SERVE_GEN))
+    step = make_serve_step(cfg, res["ec"])
+    state = {"cache": res["cache"], "tok": toks[:, -1:]}
+
+    def decode(n=4):
+        for _ in range(n):
+            state["tok"], state["cache"] = step(params, state["cache"],
+                                                state["tok"])
+    profile_classes("decode", decode, steps=4)
+    del res, state, prompts
+    reset_launches()
+    ring = serve.run(_serve_args(
+        "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len",
+        str(RING_PROMPT), "--gen", str(RING_GEN), "--window",
+        str(RING_WINDOW)), params=params)
+    ring_launches = read_launches()
+    ring_steps = RING_PROMPT + RING_GEN - 1
+    want = {"segment_tree": 0, "categorical_projection": 0,
+            "rmsnorm": (2 * n_sb + 1) * ring_steps, "flash_attention": 0,
+            "decode_attention": n_sb * ring_steps}
+    check(ring_launches == want, f"ring launches {ring_launches}, "
+          f"expected {want}")
+    check(tuple(ring["tokens"].shape) == (SERVE_BATCH, RING_GEN)
+          and int(ring["cache"]["pos"]) == ring_steps,
+          "the ring run's tokens or position are wrong")
+    say(f"serve ring (window {RING_WINDOW}, prompt {RING_PROMPT}, "
+        f"{RING_GEN} tokens, wraps {ring_steps // RING_WINDOW} times): "
+        f"{ring['decode_ms_per_step']:.2f} ms/step, launches {ring_launches}")
+    # one more decode step, with CUDA's sync check turned to errors
+    step = make_serve_step(ring["cfg"], ring["ec"], ring=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nxt, _ = step(params, ring["cache"], ring["tokens"][:, -1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("serve decode step under torch.cuda.set_sync_debug_mode('error'): "
+        "no host synchronisation")
+    return launches
+
+
+def phase_serve_against_cpu():
+    """Reduced mistral-nemo-12b (float32) served on the card and on the
+    CPU: equal greedy tokens, logits within 1e-3; a fused and a ring
+    run."""
+    from repro_torch.launch import serve
+    worst = 0.0
+    for extra in ((), ("--window", "8")):
+        runs = {d: serve.run(_serve_args("--batch", "4", "--prompt-len", "24",
+                                         "--gen", "12", "--device",
+                                         d.split()[0], *extra))
+                for d in ("cpu", "cuda", "cuda again")}
+        check(torch.equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"].cpu()),
+              f"greedy tokens differ between the card and the CPU {extra}")
+        # two runs on the card are bitwise equal, caches included
+        for path, a in _paths(runs["cuda"]["cache"]):
+            check(torch.equal(a, dict(_paths(runs["cuda again"]["cache"]))[path]),
+                  f"cache{path} differs between two runs on the card {extra}")
+        check(torch.equal(runs["cuda"]["tokens"], runs["cuda again"]["tokens"]),
+              f"tokens differ between two runs on the card {extra}")
+        if not extra:
+            a = runs["cpu"]["prefill_logits"]
+            b = runs["cuda"]["prefill_logits"].cpu()
+            worst = float((a - b).abs().max())
+            check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
+                  f"prefill logits differ between the card and the CPU by "
+                  f"{worst}")
+    say(f"serve agreement with the CPU path (reduced {SERVE_ARCH}, float32, "
+        f"fused and ring): tokens equal, prefill logits within 1e-3 (max "
+        f"{worst:.2e}); two runs on the card bitwise equal, caches included")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -435,24 +820,27 @@ def main() -> int:
                 say(f"  {name}: {line.strip()}")
 
     errs = phase_parity(dev)
-    times = phase_times(dev)
+    errs.update(phase_llm_parity(dev))
+    times = {name: (k_ms, p_ms, l_ms, nbytes, nops, PEAK_F32_PER_S)
+             for name, (k_ms, p_ms, l_ms, nbytes, nops)
+             in phase_times(dev).items()}
+    times.update({name: t[:6] for name, t in phase_llm_times(dev).items()})
     trainer, carry, launches = phase_main_path(dev)
     phase_profile(trainer.spec, carry)
     phase_against_cpu()
     phase_determinism(trainer, carry)
+    del trainer, carry
+    serve_launches = phase_serve(dev)
+    for name in ("rmsnorm", "flash_attention", "decode_attention"):
+        launches[name] = serve_launches[name]
+    phase_serve_against_cpu()
 
-    replaces = {
-        "segment_tree": ("src/repro_torch/kernels/csrc/segment_tree.cu",
-                         "src/repro/kernels/segment_tree.py:95"),
-        "categorical_projection": (
-            "src/repro_torch/kernels/csrc/categorical_projection.cu",
-            "src/repro/kernels/categorical_projection.py:98"),
-    }
     kernels = []
-    for name, (source, tpu) in replaces.items():
-        k_ms, p_ms, l_ms, nbytes, nops = times[name]
+    for name, (_, source, tpu) in kernel_table().items():
+        k_ms, p_ms, l_ms, nbytes, nops, peak = times[name]
+        check(launches[name] > 0, f"{name} never launched on its path")
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = nops / PEAK_F32_PER_S * 1e3
+        t_ops = nops / peak * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": tpu, "launches": launches[name],

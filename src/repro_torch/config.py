@@ -1,19 +1,24 @@
-"""Configuration dataclasses of the DQN path (the port's copy of the
-fields of ``repro.config`` that the concurrent trainer reads).
+"""Configuration dataclasses (the port's copy of the parts of
+``repro.config`` that the DQN trainer and the LLM serve path read).
 
-``VariantConfig`` and ``DQNConfig`` carry the same fields, defaults and
-validation as the reference. ``ExecConfig`` keeps every field so that an
-``ExperimentSpec`` JSON parses unchanged; of its knobs the DQN path reads
-only ``compute_dtype``.
+``VariantConfig``, ``DQNConfig``, the block kinds, ``MoEConfig``,
+``SSMConfig``, ``XLSTMConfig`` and ``ModelConfig`` carry the same fields,
+defaults, properties and validation as the reference, so a config
+compares field for field. ``ExecConfig`` keeps every field so that an
+``ExperimentSpec`` JSON parses unchanged; of its knobs the port reads
+``compute_dtype`` and ``vocab_pad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ExecConfig", "VariantConfig", "DQNConfig"]
+__all__ = ["ExecConfig", "VariantConfig", "DQNConfig", "ATTN", "CROSS_ATTN",
+           "MAMBA2", "MLSTM", "SLSTM", "BLOCK_KINDS", "MoEConfig",
+           "SSMConfig", "XLSTMConfig", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,3 +104,142 @@ class DQNConfig:
     @property
     def updates_per_cycle(self) -> int:
         return self.target_update_period // self.train_period  # C / F
+
+
+# ---------------------------------------------------------------------------
+# Block kinds understood by the transformer stack
+# ---------------------------------------------------------------------------
+ATTN = "attn"            # causal self-attention (GQA) + MLP
+CROSS_ATTN = "cross_attn"  # causal self-attn + cross-attn to memory + MLP
+MAMBA2 = "mamba2"        # Mamba2 SSM block (no separate MLP)
+MLSTM = "mlstm"          # xLSTM matrix-memory block
+SLSTM = "slstm"          # xLSTM scalar-memory block
+BLOCK_KINDS = (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts MLP configuration."""
+
+    n_experts: int
+    top_k: int
+    n_shared_experts: int = 0   # always-active experts (qwen2-moe style)
+    # expert weight stacks padded to this count (dead weight); 0 = none
+    pad_to: int = 0
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2-style state-space block configuration."""
+
+    state_dim: int = 64          # N: per-channel state size
+    expand: int = 2              # inner dim = expand * d_model
+    head_dim: int = 64           # channels per SSM head
+    conv_width: int = 4          # depthwise conv kernel size
+    chunk: int = 128             # chunked-scan block length
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block configuration (arXiv:2405.04517)."""
+
+    expand: int = 2              # mLSTM inner expansion
+    conv_width: int = 4
+    proj_factor_slstm: float = 4.0 / 3.0  # sLSTM post-FFN factor
+    chunk: int = 64              # chunkwise-parallel mLSTM block length
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """A full architecture description."""
+
+    arch_id: str
+    family: str                  # dense | moe | hybrid | vlm | ssm | audio
+    citation: str
+
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    # layer stack: superblock repeated n_superblocks times
+    superblock: Tuple[str, ...]
+    n_superblocks: int
+
+    head_dim: Optional[int] = None       # default d_model // n_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+
+    # encoder-decoder (whisper): a non-causal encoder stack feeding
+    # cross-attention in the decoder superblocks.
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0          # fixed encoder context (audio frames)
+
+    # VLM: cross-attention memory provided by the (stubbed) vision tower.
+    vision_tokens: int = 0        # patch-embedding sequence length
+
+    # long-context decode: sliding-window KV ring buffer length
+    sliding_window: int = 4096
+
+    # max positional extent advertised by the config (informational)
+    max_context: int = 131_072
+
+    mlp_kind: str = "swiglu"      # swiglu | gelu (whisper)
+    pos_kind: str = "rope"        # rope | learned (whisper)
+    learned_pos_len: int = 0      # table size when pos_kind == "learned"
+    # zamba2-style weight sharing: one attention block's parameters reused
+    # by every ATTN slot in the stack (cache stays per-invocation)
+    shared_attention: bool = False
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.superblock) * self.n_superblocks
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def q_groups(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
+    def has_cross_attention(self) -> bool:
+        return CROSS_ATTN in self.superblock
+
+    @property
+    def cross_memory_len(self) -> int:
+        if self.is_encoder_decoder:
+            # conv frontend downsamples 2x in whisper
+            return self.encoder_seq // 2
+        return self.vision_tokens
+
+    @property
+    def attention_free(self) -> bool:
+        return not any(k in (ATTN, CROSS_ATTN) for k in self.superblock)
+
+    def validate(self) -> None:
+        assert self.family in ("dense", "moe", "hybrid", "vlm", "ssm", "audio"), self.family
+        assert all(k in BLOCK_KINDS for k in self.superblock), self.superblock
+        assert self.n_heads % self.n_kv_heads == 0
+        if self.moe is not None:
+            assert self.moe.top_k <= self.moe.n_experts
+        if MAMBA2 in self.superblock:
+            assert self.ssm is not None
+        if MLSTM in self.superblock or SLSTM in self.superblock:
+            assert self.xlstm is not None
+        if CROSS_ATTN in self.superblock:
+            assert self.cross_memory_len > 0

@@ -1,11 +1,13 @@
-"""Carry a reference ``TrainerCarry`` across to the port.
+"""Carry reference state across to the port.
 
-The reference's carry, pulled to the host as numpy arrays (for example
-with ``jax.device_get``), becomes the port's ``TrainerCarry`` on a chosen
-device. Layouts stay the reference's: frames (B, H, W, C) uint8, conv
-kernels HWIO, ``fc_w`` (flat, hidden) with its rows in the NHWC flatten
-order that ``models.nature_cnn`` reproduces. Keys become (..., 2) int64
-tensors of uint32 words; every other array keeps its dtype.
+The reference's arrays, pulled to the host as numpy arrays (for example
+with ``jax.device_get``), become the port's tensors on a chosen device.
+Layouts stay the reference's: for the DQN carry, frames (B, H, W, C)
+uint8, conv kernels HWIO, ``fc_w`` (flat, hidden) with its rows in the
+NHWC flatten order that ``models.nature_cnn`` reproduces; for the
+transformer, the stacked ``layers/b0_attn/*`` parameters and the
+(n_sb, B, Hkv, L, hd) caches. Keys become (..., 2) int64 tensors of
+uint32 words; every other array keeps its dtype.
 """
 
 from __future__ import annotations
@@ -20,9 +22,14 @@ from repro_torch.core.synchronized import SamplerState
 
 
 def tensor_from_jax(x: Any, device="cpu") -> torch.Tensor:
-    """One array; uint32 (key words) widen to int64."""
-    a = np.array(x, dtype=np.int64 if np.asarray(x).dtype == np.uint32
-                 else None, order="C", copy=True)
+    """One array; uint32 (key words) widen to int64, and bfloat16 (which
+    numpy holds as ml_dtypes' type) crosses as float32 exactly."""
+    dt = np.asarray(x).dtype
+    if dt.name == "bfloat16":
+        a = np.array(x, dtype=np.float32, order="C", copy=True)
+        return torch.from_numpy(a).to(device=device, dtype=torch.bfloat16)
+    a = np.array(x, dtype=np.int64 if dt == np.uint32 else None, order="C",
+                 copy=True)
     return torch.from_numpy(a).to(device)
 
 
@@ -53,3 +60,12 @@ def carry_from_jax(carry: Any, device="cpu") -> TrainerCarry:
                         _dict(carry.replay, device), sampler,
                         tensor_from_jax(carry.step, device).to(torch.int32),
                         tensor_from_jax(carry.seed, device).to(torch.int32))
+
+
+def tree_from_jax(tree: Any, device="cpu") -> Any:
+    """A nested dict of arrays (transformer parameters, a decode cache) as
+    the same dict of tensors on ``device``; a cache's int32 ``pos`` and
+    bool ``ring`` become device scalars."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_jax(v, device) for k, v in tree.items()}
+    return tensor_from_jax(tree, device)

@@ -20,9 +20,12 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("segment_tree", "categorical_projection")
+SOURCES = ("segment_tree", "categorical_projection", "rmsnorm",
+           "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,3 +82,44 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+# the element types the attention and norm kernels take, by their C code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# shared memory one block may use on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232448
+
+
+def dtype_code(op: str, *tensors: torch.Tensor) -> int:
+    """The C dtype code of ``tensors``, which must share one of
+    ``DTYPE_CODES``' types; raises naming the op otherwise."""
+    dt = tensors[0].dtype
+    if dt not in DTYPE_CODES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{op}: the kernel takes float32 or bfloat16 inputs "
+                        f"of one type, got {[t.dtype for t in tensors]}")
+    return DTYPE_CODES[dt]
+
+
+def vector_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` laid out for 16-byte vector loads along its last axis: that
+    axis contiguous, the base and every other stride a multiple of 16
+    bytes. A tensor that is not is copied into a new contiguous one; if
+    its last axis is not a multiple of 16 bytes that is no help, and the
+    call raises."""
+    def ok(x):
+        es = x.element_size()
+        return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+                and all(x.stride(i) * es % 16 == 0 or x.shape[i] == 1
+                        for i in range(x.dim() - 1)))
+    if not ok(t):
+        t = t.clone(memory_format=torch.contiguous_format)
+        if not ok(t):
+            raise ValueError(f"a {tuple(t.shape)} {t.dtype} tensor cannot "
+                             "be read in 16-byte vectors (last axis not a "
+                             "multiple of 16 bytes, or a misaligned base)")
+    return t
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,86 @@
+"""The prefill attention op: causal GQA flash attention.
+
+``flash_attention`` takes the model's layout, q (B, S, H, D) and k, v
+(B, S, Hkv, D), and returns (B, S, H, D) in q's type. On a CUDA tensor it
+launches the kernel of ``csrc/flash_attention.cu``, which reads these
+layouts through their strides (no transpose, no head-dim padding); on a
+CPU tensor it runs the plain version of ``kernels/ref.py`` in the
+kernel layout (B, H, S, D). Forward only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attention as _plain
+
+__all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 256
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The plain version in the model's layout."""
+    o = _plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention")
+    fn = lib.flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, Hkv, D), H % Hkv == 0; float32 or
+    bfloat16. ``window``: keys with kpos > qpos - window only. CUDA
+    tensors go through the kernel (its launches are counted in
+    ``flash_attention.launches``); CPU tensors through the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    shape = f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
+    if (k.shape != (B, S, Hkv, D) or v.shape != k.shape or Hkv == 0
+            or H % Hkv):
+        raise ValueError(f"flash_attention: inconsistent shapes {shape}")
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes a head dim that "
+                         f"is a multiple of 8 and at most {MAX_HEAD_DIM}; "
+                         f"got {shape}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, got "
+                         f"{window}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v must share one device")
+    code = build.dtype_code("flash_attention", q, k, v)
+    q, k, v = (build.vector_ready(t) for t in (q, k, v))
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 12)(*[t.stride(i) for t in (q, k, v, out)
+                                      for i in (0, 1, 2)])
+    err = _lib().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        Hkv, D, strides, float(D ** -0.5), int(causal),
+        0 if window is None else int(window), code, build.stream_of(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed at {shape} "
+                           f"{q.dtype}: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,13 +1,78 @@
-"""Plain PyTorch versions of the two kernels of the DQN path.
+"""Plain PyTorch versions of the port's kernels.
 
 They mirror ``repro.kernels.ref`` step for step, so on the CPU they give
-the reference's bits. The kernel wrappers call them for CPU tensors, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+the reference's results. The kernel wrappers call them for CPU tensors,
+and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
+
+Layouts (kernel-native, as the reference's):
+  flash_attention: q (B, H, S, D), k/v (B, Hkv, S, D)   -> (B, H, S, D)
+  decode_attention: q (B, H, D), k/v (B, Hkv, L, D)     -> (B, H, D)
+  rmsnorm: x (..., D), gamma (D,)
+  segment_tree_sample: tree (2P,) sum-tree, targets (n,) -> (n,) int32
+  categorical_projection: probs (B, K), rewards/dones (B,) -> (B, K)
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+NEG_INF = float("-inf")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Causal (and optionally windowed) GQA attention, one-shot; the
+    probabilities are cast to q's type before the PV product."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if Hkv != H:
+        k = torch.repeat_interleave(k, H // Hkv, dim=1)
+        v = torch.repeat_interleave(v, H // Hkv, dim=1)
+    scale = D ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """One query token per head against a cache masked to
+    ``pos < min(cache_len, L)``."""
+    B, H, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k = torch.repeat_interleave(k, H // Hkv, dim=1)
+        v = torch.repeat_interleave(v, H // Hkv, dim=1)
+    scale = D ** -0.5
+    s = torch.einsum("bhd,bhld->bhl", q, k).to(torch.float32) * scale
+    pos = torch.arange(L, device=q.device).reshape(1, 1, L)
+    if isinstance(cache_len, torch.Tensor):
+        n = torch.clamp(cache_len.to(q.device), max=L)
+    else:
+        n = min(int(cache_len), L)
+    s = torch.where(pos < n, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhl,bhld->bhd", p, v)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm with a float32 mean square, cast back to x's type."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.to(torch.float32)).to(dt)
 
 
 def segment_tree_sample(tree: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,96 @@
+"""GQA attention of the transformer stack: the port of
+``repro.models.attention``.
+
+Layouts: q (B, S, H, D); k/v (B, S, Hkv, D); caches (B, Hkv, L, D).
+
+``causal_attention`` and ``decode_attention`` call the kernel ops
+(flash attention and decode attention): on the card their kernels, on
+the CPU their plain versions, which take the place of the reference's
+dense and blocked XLA variants. ``cache_update`` writes one step's K/V
+in place, at a slot computed on the device, so the decode loop never
+waits for the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def repeat_kv(kv: torch.Tensor, n_heads: int, head_axis: int) -> torch.Tensor:
+    n_kv = kv.shape[head_axis]
+    if n_kv == n_heads:
+        return kv
+    return torch.repeat_interleave(kv, n_heads // n_kv, dim=head_axis)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention with GQA (kernel 3): q (B, S, H, D), k/v
+    (B, S, Hkv, D) -> (B, S, H, D)."""
+    return ops.flash_attention(q, k, v, causal=True, window=window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, 1, H, D); caches: (B, Hkv, L, D); cache_len: () int32 count
+    of valid entries (kernel 4). A ring cache passes cache_len > L once
+    it has wrapped: every slot < min(cache_len, L) is valid, and order is
+    irrelevant to attention. Returns (B, 1, H, D)."""
+    return ops.decode_attention(q, k_cache, v_cache, cache_len)
+
+
+def cache_slot(pos: torch.Tensor, L: int, ring: bool) -> torch.Tensor:
+    """The (1,) int64 cache slot of absolute position ``pos``, computed on
+    pos's device: ``pos % L`` for a ring cache, ``min(pos, L - 1)``
+    otherwise."""
+    pos = pos.to(torch.int64).reshape(1)
+    return torch.remainder(pos, L) if ring else torch.clamp(pos, max=L - 1)
+
+
+@contextlib.contextmanager
+def _one_writer_per_element():
+    """Lift ``torch.use_deterministic_algorithms`` around a copy that
+    writes each element once. A one-index ``index_copy_`` is deterministic
+    by construction, but under the flag torch routes it on the card
+    through a sort-based ``index_put_`` of about ten kernels, which the
+    decode step would pay twice per layer."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor,
+                slot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one step's K/V (B, 1, Hkv, D) at cache slot ``slot`` ((1,)
+    int64 on the device), in place: one ``index_copy_`` kernel per cache,
+    free of host syncs, and deterministic (one index, so one writer per
+    element)."""
+    if slot.numel() != 1:
+        raise ValueError(f"one cache slot expected, got {tuple(slot.shape)}")
+    with _one_writer_per_element():
+        k_cache.index_copy_(2, slot, k_new.transpose(1, 2).to(k_cache.dtype))
+        v_cache.index_copy_(2, slot, v_new.transpose(1, 2).to(v_cache.dtype))
+    return k_cache, v_cache
+
+
+def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor, ring: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Insert one step's K/V (B, 1, Hkv, D) at absolute position ``pos``
+    (a device int32 scalar). Ring caches wrap modulo the window length.
+    Unlike the reference, which returns new arrays, the caches are
+    written in place and returned."""
+    return cache_write(k_cache, v_cache, k_new, v_new,
+                       cache_slot(pos, k_cache.shape[2], ring))

@@ -1,19 +1,103 @@
-"""NoisyNet layers (Fortunato et al. 2018): the port of
-``repro.models.layers.factorized_noise`` and ``noisy_linear``."""
+"""Shared layer math: the port of ``repro.models.layers``: norms, RoPE
+and MLPs of the transformer stack, and the NoisyNet layers (Fortunato et
+al. 2018) of the Q-network.
+
+``rms_norm`` goes through the RMSNorm kernel op (``kernels/ops``); the
+MLP products are plain ``torch.matmul`` calls in the input's type, as the
+reference leaves them to XLA.
+"""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import rng
+from repro_torch.kernels import ops
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with a float32 mean square, in x's type (kernel 5)."""
+    return ops.rmsnorm(x, gamma, eps)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device):
+    """The (head_dim//2,) float32 frequencies, made in numpy as the
+    reference makes them and copied to ``device`` once: a host-to-device
+    copy on every decode step would make the host wait for the card."""
+    freqs = theta ** (-np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)
+    return torch.from_numpy(np.asarray(freqs, dtype=np.float32)).to(device)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> torch.Tensor:
+    """(..., head_dim//2) float32 rotation angles for integer positions."""
+    freqs = _rope_freqs(head_dim, float(theta), positions.device)
+    return positions[..., None].to(torch.float32) * freqs
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """The rotation of ``rotate`` for integer positions (B, S) or (S,):
+    float32 (cos, sin) of shape (B or 1, S, 1, head_dim), cos on both
+    halves of the head dim and sin negated on the first. A stack makes
+    them once for all its layers."""
+    ang = rope_angles(positions, head_dim, theta)    # (B,S,D/2) or (S,D/2)
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (torch.cat([cos, cos], dim=-1)[:, :, None, :],
+            torch.cat([-sin, sin], dim=-1)[:, :, None, :])
+
+
+def rotate(x: torch.Tensor, tables) -> torch.Tensor:
+    """Half-split RoPE of x (B, S, H, D) by ``rope_tables``: the first and
+    second halves of the head dim are the pair's two coordinates. It is
+    the reference's [x1 cos - x2 sin, x2 cos + x1 sin] bit for bit (a
+    product with -sin is the negated product, and a + (-b) is a - b), in
+    five kernels instead of eight."""
+    cos, sin = tables
+    d = x.shape[-1]
+    rot = torch.cat([x[..., d // 2:], x[..., : d // 2]], dim=-1)
+    return (x * cos + rot * sin).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,) absolute token
+    positions."""
+    return rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    g = torch.matmul(x, w_gate.to(dt))
+    u = torch.matmul(x, w_up.to(dt))
+    return torch.matmul(F.silu(g) * u, w_down.to(dt))
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = torch.matmul(x, w_up.to(dt)) + b_up.to(dt)
+    h = F.gelu(h, approximate="tanh")
+    return torch.matmul(h, w_down.to(dt)) + b_down.to(dt)
 
 
 def factorized_noise(key: torch.Tensor, n: int) -> torch.Tensor:
     """f(ε) = sign(ε)·√|ε| with ε ~ N(0, 1)."""
     x = rng.normal(key, (n,))
-    return torch.sign(x) * torch.sqrt(torch.abs(x))
+    return torch.sign(x) * rng.sqrt_f32(torch.abs(x))
 
 
 def noisy_linear(x: torch.Tensor, w_mu: torch.Tensor, w_sigma: torch.Tensor,

@@ -1,13 +1,20 @@
-"""Parameter specs: a model declares its parameters as a dict of
+"""Parameter specs: a model declares its parameters as a nested dict of
 :class:`Leaf` (shape, logical axes, initializer) and ``init_tree``
 materializes them. The port of ``repro.models.params``; the draws go
 through :mod:`repro_torch.rng`, so an init matches the reference's to
-float rounding (``normal`` is exact to a few ulps)."""
+float rounding (``normal`` is exact to a few ulps).
+
+A leaf is drawn in chunks of at most ``DRAW_CHUNK`` elements, each cast
+straight into the leaf's dtype: a full-size leaf (mistral-nemo-12b's
+stacked MLP weights hold 2.9 G elements) would otherwise need tens of GB
+of int64 temporaries. The chunks offset the threefry counters, so a
+chunked draw equals the whole one bit for bit.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,13 +22,14 @@ import torch
 from repro_torch import rng
 
 Tree = Any
+DRAW_CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones | const
+    init: str = "normal"       # normal | zeros | ones | embed | const
     dtype: Any = torch.float32
     fan_in: Optional[int] = None
     value: float = 0.0         # fill value when init == "const"
@@ -42,6 +50,28 @@ def _leaves(spec: Tree, prefix=()) -> list:
     return out
 
 
+def _build(spec: Tree, fn: Callable[[Tuple[str, ...], Leaf], Any],
+           prefix=()) -> Tree:
+    if isinstance(spec, Leaf):
+        return fn(prefix, spec)
+    return {k: _build(v, fn, prefix + (k,)) for k, v in spec.items()}
+
+
+def _scale(leaf: Leaf) -> float:
+    """The normal draw's scale, rounded to float32 as jax applies it."""
+    if leaf.init == "embed":
+        return float(np.float32(0.02))
+    fan_in = leaf.fan_in
+    if fan_in is None:
+        # contract over all but the last axis by convention
+        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 \
+            else leaf.shape[0]
+        # the stacked layer axis does not count toward fan-in
+        if leaf.axes and leaf.axes[0] == "layers" and len(leaf.shape) > 2:
+            fan_in = int(np.prod(leaf.shape[1:-1]))
+    return float(np.float32(1.0 / np.sqrt(max(fan_in, 1))))
+
+
 def _init_leaf(key: torch.Tensor, leaf: Leaf) -> torch.Tensor:
     dev = key.device
     if leaf.init == "zeros":
@@ -50,18 +80,41 @@ def _init_leaf(key: torch.Tensor, leaf: Leaf) -> torch.Tensor:
         return torch.ones(leaf.shape, dtype=leaf.dtype, device=dev)
     if leaf.init == "const":
         return torch.full(leaf.shape, leaf.value, dtype=leaf.dtype, device=dev)
-    fan_in = leaf.fan_in
-    if fan_in is None:
-        fan_in = int(np.prod(leaf.shape[:-1])) if len(leaf.shape) > 1 \
-            else leaf.shape[0]
-    scale = float(np.float32(1.0 / np.sqrt(max(fan_in, 1))))
-    return (scale * rng.normal(key, leaf.shape)).to(leaf.dtype)
+    scale = _scale(leaf)
+    out = torch.empty(leaf.shape, dtype=leaf.dtype, device=dev)
+    flat = out.view(-1)
+    n = flat.numel()
+    for start in range(0, n, DRAW_CHUNK):
+        stop = min(start + DRAW_CHUNK, n)
+        flat[start:stop] = (scale * rng.normal(key, (stop - start,),
+                                               offset=start)).to(leaf.dtype)
+    return out
 
 
-def init_tree(spec: Dict[str, Leaf], key: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Materialize a flat spec: one key per leaf, split in sorted-name
-    order as the reference does."""
+def init_tree(spec: Tree, key: torch.Tensor) -> Tree:
+    """Materialize a spec: one key per leaf, split in sorted-path order as
+    the reference does; the tree keeps the spec's nesting."""
     leaves = _leaves(spec)
     keys = rng.split(key, max(len(leaves), 1))
-    return {path[-1]: _init_leaf(keys[i], leaf)
-            for i, (path, leaf) in enumerate(leaves)}
+    keymap = {path: keys[i] for i, (path, _) in enumerate(leaves)}
+    return _build(spec, lambda path, leaf: _init_leaf(keymap[path], leaf))
+
+
+def stacked(spec: Tree, n: int) -> Tree:
+    """Add a leading 'layers' scan dimension of size n to every leaf."""
+    def add(_, leaf: Leaf) -> Leaf:
+        return Leaf((n,) + leaf.shape, ("layers",) + leaf.axes,
+                    init=leaf.init, dtype=leaf.dtype, fan_in=leaf.fan_in,
+                    value=leaf.value)
+    return _build(spec, add)
+
+
+def param_count(spec: Tree) -> int:
+    return sum(int(np.prod(leaf.shape)) for _, leaf in _leaves(spec))
+
+
+def drawn_in(spec: Tree, dtype) -> Tree:
+    """The spec with every drawn leaf (init ``normal`` or ``embed``)
+    stored in ``dtype``; constant leaves (norm gains) keep theirs."""
+    return _build(spec, lambda _, leaf: dataclasses.replace(leaf, dtype=dtype)
+                  if leaf.init in ("normal", "embed") else leaf)

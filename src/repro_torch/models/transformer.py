@@ -1,0 +1,321 @@
+"""The composed model, attention-only subset: the port of
+``repro.models.transformer`` for stacks of ATTN blocks (GQA
+self-attention + MLP), which is every dense architecture the reference
+supports.
+
+A model is ``cfg.superblock`` repeated ``cfg.n_superblocks`` times. The
+reference scans over stacked parameters; here a Python loop walks the
+same stacked layout, so parameters and caches keep the reference's
+paths and shapes and ``convert`` carries them across as they are:
+``layers/b0_attn/*`` with a leading ``n_superblocks`` axis, linears as
+(d_in, d_out), caches (n_sb, B, Hkv, L, hd).
+
+Public API (as the reference's):
+  model_param_spec(cfg, ec)                        -> param spec tree
+  init_params(cfg, key, ec)                        -> params on key's device
+  forward(cfg, ec, params, tokens, collect_cache_len=None)
+                                                   -> logits, aux[, cache]
+  init_cache(cfg, ec, batch, cache_len, ring, device=...) -> decode cache
+  decode_step(cfg, ec, params, cache, tokens, ring) -> logits, cache
+
+Drawn parameters (projections, MLP, embed, unembed) are stored in the
+compute dtype: the reference stores them in float32 but reads them only
+through ``.astype(cdtype)``, so the numbers are the same and a bfloat16
+model takes half the memory. Norm gains stay float32. Block kinds other
+than ATTN (CROSS_ATTN, MAMBA2, MLSTM, SLSTM), MoE MLPs, learned
+positions, the encoder and shared attention raise NotImplementedError
+naming their ROADMAP.md item; decode caches are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
+                                ExecConfig, ModelConfig)
+from repro_torch.models import attention as A
+from repro_torch.models import params as P
+from repro_torch.models.layers import (gelu_mlp, rms_norm, rope_tables,
+                                       rotate, round_up, swiglu)
+
+Tree = Any
+DEFAULT_EXEC = ExecConfig()
+
+# what the port does not run yet -> its ROADMAP.md queue 1 item
+NOT_PORTED = {
+    CROSS_ATTN: "item 13: cross-attention (VLM, whisper)",
+    MAMBA2: "item 13: Mamba2 blocks with the ssm_scan kernel",
+    MLSTM: "item 13: xLSTM blocks with the slstm_scan kernel",
+    SLSTM: "item 13: xLSTM blocks with the slstm_scan kernel",
+    "moe": "item 13: mixture-of-experts MLPs",
+    "learned": "item 13: cross-attention (VLM, whisper), with learned "
+               "positions",
+    "encoder": "item 13: cross-attention (VLM, whisper), with the encoder",
+    "shared_attention": "item 13: Mamba2 blocks (zamba2's shared attention)",
+}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    missing = [k for k in cfg.superblock if k != ATTN]
+    if cfg.moe is not None:
+        missing.append("moe")
+    if cfg.pos_kind == "learned":
+        missing.append("learned")
+    if cfg.is_encoder_decoder:
+        missing.append("encoder")
+    if cfg.shared_attention:
+        missing.append("shared_attention")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: not ported yet: " + "; ".join(
+                f"{m} (ROADMAP.md queue 1 {NOT_PORTED[m]})"
+                for m in dict.fromkeys(missing)))
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def _mlp_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {
+            "w_up": P.Leaf((d, f), ("embed", "mlp"), fan_in=d),
+            "b_up": P.Leaf((f,), ("mlp",), init="zeros"),
+            "w_down": P.Leaf((f, d), ("mlp", "embed"), fan_in=f),
+            "b_down": P.Leaf((d,), ("embed",), init="zeros"),
+        }
+    return {
+        "w_gate": P.Leaf((d, f), ("embed", "mlp"), fan_in=d),
+        "w_up": P.Leaf((d, f), ("embed", "mlp"), fan_in=d),
+        "w_down": P.Leaf((f, d), ("mlp", "embed"), fan_in=f),
+    }
+
+
+def _attn_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "norm1": P.Leaf((d,), ("embed",), init="ones"),
+        "wq": P.Leaf((d, H * hd), ("embed", "heads_flat"), fan_in=d),
+        "wk": P.Leaf((d, Hkv * hd), ("embed", "kv_flat"), fan_in=d),
+        "wv": P.Leaf((d, Hkv * hd), ("embed", "kv_flat"), fan_in=d),
+        "wo": P.Leaf((H * hd, d), ("heads_flat", "embed"), fan_in=H * hd),
+        "norm2": P.Leaf((d,), ("embed",), init="ones"),
+        "mlp": _mlp_spec(cfg),
+    }
+
+
+def _scanned_superblock_spec(cfg: ModelConfig) -> Dict[str, Tree]:
+    return {f"b{i}_{kind}": _attn_spec(cfg)
+            for i, kind in enumerate(cfg.superblock)}
+
+
+def padded_vocab(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> int:
+    return round_up(cfg.vocab, ec.vocab_pad)
+
+
+def model_param_spec(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
+    """The reference's spec: the same paths, shapes, axes, initializers,
+    fan-ins and (float32) dtypes."""
+    _check_ported(cfg)
+    d = cfg.d_model
+    vpad = padded_vocab(cfg, ec)
+    spec: Dict[str, Tree] = {
+        "embed": P.Leaf((vpad, d), ("vocab", "embed"), init="embed"),
+        "final_norm": P.Leaf((d,), ("embed",), init="ones"),
+        "layers": P.stacked(_scanned_superblock_spec(cfg), cfg.n_superblocks),
+    }
+    if not cfg.tie_embeddings:
+        spec["unembed"] = P.Leaf((d, vpad), ("embed", "vocab"), fan_in=d)
+    return spec
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor,
+                ec: ExecConfig = DEFAULT_EXEC) -> Tree:
+    """The reference's init for ``key`` on key's device; drawn leaves are
+    stored in the compute dtype (see the module docstring)."""
+    spec = P.drawn_in(model_param_spec(cfg, ec), ec.cdtype)
+    return P.init_tree(spec, key)
+
+
+# ---------------------------------------------------------------------------
+# Blocks (full-sequence path)
+# ---------------------------------------------------------------------------
+
+def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _layer(tree: Tree, i: int) -> Tree:
+    """Superblock ``i``'s slice of a stacked tree (views, no copies)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def _mlp(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_kind == "gelu":
+        return gelu_mlp(x, bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
+    return swiglu(x, bp["w_gate"], bp["w_up"], bp["w_down"])
+
+
+def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
+    hd = cfg.resolved_head_dim
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    q = _heads(torch.matmul(h, bp["wq"].to(h.dtype)), cfg.n_heads, hd)
+    k = _heads(torch.matmul(h, bp["wk"].to(h.dtype)), cfg.n_kv_heads, hd)
+    v = _heads(torch.matmul(h, bp["wv"].to(h.dtype)), cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
+                    window: Optional[int] = None, return_kv: bool = False):
+    """``rope``: the stack's ``rope_tables`` for x's positions."""
+    q, k, v = _qkv(bp, x, cfg)
+    q = rotate(q, rope)
+    k = rotate(k, rope)
+    o = A.causal_attention(q, k, v, window=window)
+    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+    out = torch.matmul(o, bp["wo"].to(o.dtype))
+    if return_kv:
+        return out, k, v
+    return out
+
+
+def _apply_block(kind: str, bp, x: torch.Tensor, rope, cfg: ModelConfig,
+                 ec: ExecConfig, collect: bool = False):
+    """Full-sequence block application. Returns (x, entry); with
+    ``collect``, ``entry`` holds this block's K/V in the cache layout
+    (B, Hkv, S, hd), unpadded (``forward`` writes it into the cache). An
+    ATTN block adds no auxiliary loss."""
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r}: ROADMAP.md queue 1 "
+                                  f"{NOT_PORTED[kind]}")
+    entry = None
+    if collect:
+        h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
+        entry = {"k": k.transpose(1, 2).to(ec.cdtype),
+                 "v": v.transpose(1, 2).to(ec.cdtype)}
+        x = x + h
+    else:
+        x = x + _self_attention(bp, x, rope, cfg)
+    x = x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    return x, entry
+
+
+def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return torch.matmul(x, params["embed"].to(x.dtype).t())
+    return torch.matmul(x, params["unembed"].to(x.dtype))
+
+
+def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
+            tokens: torch.Tensor, memory: Optional[torch.Tensor] = None,
+            collect_cache_len: Optional[int] = None):
+    """Training / prefill forward. tokens: (B, S) integer.
+
+    Returns (logits (B, S, vpad), aux_loss scalar); with
+    ``collect_cache_len`` set, also returns a ready decode cache of that
+    length (the fused prefill: one forward builds the KV caches instead
+    of S decode steps). ``memory`` (cross-attention) is not ported."""
+    _check_ported(cfg)
+    if memory is not None:
+        raise NotImplementedError(f"cross-attention memory: ROADMAP.md queue "
+                                  f"1 {NOT_PORTED[CROSS_ATTN]}")
+    B, S = tokens.shape
+    dev = tokens.device
+    x = params["embed"].to(ec.cdtype)[tokens.long()]
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    cache = None
+    if collect_cache_len:
+        if S > collect_cache_len:
+            raise ValueError(f"prompt of {S} tokens exceeds the cache length "
+                             f"{collect_cache_len}")
+        cache = init_cache(cfg, ec, B, collect_cache_len, device=dev)
+        cache["pos"].fill_(S)
+    for i in range(cfg.n_superblocks):
+        lp = _layer(params["layers"], i)
+        for j, kind in enumerate(cfg.superblock):
+            name = f"b{j}_{kind}"
+            x, e = _apply_block(kind, lp[name], x, rope, cfg, ec,
+                                collect=cache is not None)
+            if cache is not None:
+                cache["layers"][name]["k"][i, :, :, :S] = e["k"]
+                cache["layers"][name]["v"][i, :, :, :S] = e["v"]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(cfg, params, x)
+    # the reference averages the blocks' auxiliary (MoE) losses: 0 here
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if cache is not None:
+        return logits, aux, cache
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# Decode path (serve_step)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, ec: ExecConfig, batch: int, cache_len: int,
+               ring: bool = False, *, device) -> Tree:
+    """Decode cache tree on ``device``. ``cache_len`` is the KV length (the
+    window for ring caches). ``cache["pos"]`` counts tokens already
+    consumed, as a device int32 scalar."""
+    _check_ported(cfg)
+    shape = (cfg.n_superblocks, batch, cfg.n_kv_heads, cache_len,
+             cfg.resolved_head_dim)
+    layers = {f"b{i}_{kind}": {
+        "k": torch.zeros(shape, dtype=ec.cdtype, device=device),
+        "v": torch.zeros(shape, dtype=ec.cdtype, device=device)}
+        for i, kind in enumerate(cfg.superblock)}
+    return {"layers": layers,
+            "pos": torch.zeros((), dtype=torch.int32, device=device),
+            "ring": torch.full((), ring, dtype=torch.bool, device=device)}
+
+
+def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, rope,
+                  slot: torch.Tensor, cache_len: torch.Tensor,
+                  cfg: ModelConfig):
+    """One-token block application against one superblock's cache slice
+    (written in place); returns x. ``rope``, ``slot`` and ``cache_len``
+    (pos + 1) depend only on the position, so ``decode_step`` makes them
+    once for all layers."""
+    if kind != ATTN:
+        raise NotImplementedError(f"block kind {kind!r}: ROADMAP.md queue 1 "
+                                  f"{NOT_PORTED[kind]}")
+    q, k, v = _qkv(bp, x, cfg)
+    q = rotate(q, rope)
+    k = rotate(k, rope)
+    kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"], k, v, slot)
+    o = A.decode_attention(q, kc, vc, cache_len)
+    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+    x = x + torch.matmul(o, bp["wo"].to(o.dtype))
+    return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+
+
+def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
+                tokens: torch.Tensor, ring: bool = False):
+    """One decode step. tokens: (B, 1) integer. Returns (logits (B, 1,
+    vpad), cache) with the caches written in place and ``pos`` advanced
+    on the device."""
+    pos = cache["pos"]
+    x = params["embed"].to(ec.cdtype)[tokens.long()]
+    L = next(iter(cache["layers"].values()))["k"].shape[3]
+    rope = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
+                       cfg.resolved_head_dim, cfg.rope_theta)
+    slot = A.cache_slot(pos, L, ring)
+    cache_len = pos + 1
+    for i in range(cfg.n_superblocks):
+        lp = _layer(params["layers"], i)
+        cs = _layer(cache["layers"], i)
+        for j, kind in enumerate(cfg.superblock):
+            name = f"b{j}_{kind}"
+            x = _decode_block(kind, lp[name], cs[name], x, rope, slot,
+                              cache_len, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(cfg, params, x)
+    return logits, {"layers": cache["layers"], "pos": cache_len,
+                    "ring": cache["ring"]}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.optim.base import Optimizer
+from repro_torch.rng import sqrt_f32
 
 
 def centered_rmsprop(learning_rate: float, decay: float = 0.95,
@@ -29,9 +30,9 @@ def centered_rmsprop(learning_rate: float, decay: float = 0.95,
             s[k] = decay * state["s"][k] + (1 - decay) * g * g
             if centered:
                 m[k] = decay * state["g"][k] + (1 - decay) * g
-                denom = torch.sqrt(s[k] - m[k] * m[k] + eps)
+                denom = sqrt_f32(s[k] - m[k] * m[k] + eps)
             else:
-                denom = torch.sqrt(s[k] + eps)
+                denom = sqrt_f32(s[k] + eps)
             updates[k] = -learning_rate * g / denom
         return updates, ({"s": s, "g": m} if centered else {"s": s})
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
-           "randint", "normal", "choice", "threefry2x32"]
+           "randint", "normal", "choice", "threefry2x32", "sqrt_f32"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -81,10 +81,11 @@ def _hash(key: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor):
     return threefry2x32(k1, k2, hi, lo)
 
 
-def _iota_2x32(shape: Sequence[int], device) -> tuple:
-    """The flat 64-bit element index of ``shape`` as (high, low) words."""
+def _iota_2x32(shape: Sequence[int], device, offset: int = 0) -> tuple:
+    """The flat 64-bit element index of ``shape``, plus ``offset``, as
+    (high, low) words."""
     n = math.prod(shape)
-    flat = torch.arange(n, dtype=torch.int64, device=device)
+    flat = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return (flat >> 32).reshape(tuple(shape)), (flat & MASK).reshape(tuple(shape))
 
 
@@ -116,18 +117,23 @@ def fold_in(key: torch.Tensor, data: IntLike) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape: Sequence[int] = (),
+                offset: int = 0) -> torch.Tensor:
     """32 random bits per element (``jax.random.bits`` for uint32),
-    returned as int64 values in [0, 2**32)."""
-    hi, lo = _iota_2x32(tuple(shape), key.device)
+    returned as int64 values in [0, 2**32). ``offset`` shifts the element
+    counters: the bits of elements [offset, offset + n) of a larger draw,
+    so a draw made in chunks equals the whole one bit for bit."""
+    hi, lo = _iota_2x32(tuple(shape), key.device, offset)
     b1, b2 = _hash(key, hi, lo)
     return b1 ^ b2
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32 on [minval, maxval)."""
-    bits = random_bits(key, shape)
+            minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 on [minval, maxval); ``offset``
+    as in :func:`random_bits`."""
+    bits = random_bits(key, shape, offset)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
@@ -171,12 +177,23 @@ _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                   0.00943887047, 1.00167406, 2.83297682)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA's. On the CPU torch's
+    vectorised float32 sqrt is not: it misses by an ulp on some inputs
+    and, on some runs, by up to ~2e-4 relative (an approximate
+    reciprocal-root path), so it is taken there in float64 and rounded
+    once. CUDA's float32 sqrt is IEEE-exact."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+    return torch.sqrt(x)
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv by XLA's polynomial: within a few ulps of jax's
     (torch.erfinv is further away); ±1 map to ±max float."""
     w = -torch.log1p(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
     p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0])
     for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
         p = torch.where(lt, a, b) + p * w
@@ -184,7 +201,9 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(x) == 1.0, x * big, p * x)
 
 
-def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """``jax.random.normal`` in float32."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+def normal(key: torch.Tensor, shape: Sequence[int] = (),
+           offset: int = 0) -> torch.Tensor:
+    """``jax.random.normal`` in float32; ``offset`` as in
+    :func:`random_bits`."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, offset)
     return erfinv(u) * _SQRT2

@@ -7,7 +7,10 @@ nothing of JAX, so they run on a machine that has only PyTorch:
         tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: the suite's conftest imports jax.) The segment tree is
-held bit for bit, the projection to atol = rtol = 1e-6.
+held bit for bit, the projection to atol = rtol = 1e-6; RMSNorm, flash
+attention and decode attention to atol = rtol = 2e-4 in float32 and 2e-2
+in bfloat16 (the reference's own kernel tolerances), at the shapes
+``chip_smoke.py`` checks.
 """
 
 import numpy as np
@@ -15,10 +18,24 @@ import pytest
 import torch
 
 from repro_torch.kernels import categorical_projection as cp
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import segment_tree as st
 
 PROJ_TOL = dict(atol=1e-6, rtol=1e-6)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tol(dtype):
+    t = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    return dict(atol=t, rtol=t)
+
+
+def _normal(seed, shape, dtype):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a).cuda().to(dtype)
 
 
 def _proj_case(seed, B, K):
@@ -86,3 +103,84 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
                                    torch.zeros(2, device="cuda"),
                                    torch.zeros(2, device="cuda"),
                                    v_min=-1.0, v_max=1.0, gamma_n=0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,D", [(8 * 1024, 5120), (7, 96), (3, 20)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_rmsnorm(rows, D, dtype):
+    _need_card()
+    dt = DTYPES[dtype]
+    x = _normal(rows, (rows, D), dt)
+    gamma = _normal(D, (D,), torch.float32)
+    before = rn.rmsnorm.launches
+    got = ops.rmsnorm(x, gamma, 1e-5)
+    want = rn.rmsnorm_plain(x, gamma, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    assert got.dtype == dt and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 300, 32, 8, 128),
+                                         (1, 256, 24, 2, 128),
+                                         (1, 128, 4, 1, 80),
+                                         (2, 200, 8, 2, 64)])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_flash_attention(B, S, H, Hkv, D, window, dtype):
+    _need_card()
+    dt = DTYPES[dtype]
+    q = _normal(1, (B, S, H, D), dt)
+    k = _normal(2, (B, S, Hkv, D), dt)
+    v = _normal(3, (B, S, Hkv, D), dt)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, True, window)
+    want = fa.flash_attention_plain(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,L,D,cache_len", [
+    (8, 32, 8, 1088, 128, 1), (8, 32, 8, 1088, 128, 517),
+    (8, 32, 8, 1088, 128, 1088), (2, 32, 8, 16, 128, 40),
+    (2, 24, 2, 1088, 128, 517), (3, 12, 1, 100, 80, 77)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_decode_attention(B, H, Hkv, L, D, cache_len, dtype):
+    """Group sizes 4, 12 and 12 (MQA); cache_len 40 > L = 16 is a ring
+    cache that has wrapped. The caches are layer slices of a stacked
+    (layers, B, Hkv, L, D) tensor, as in the model."""
+    _need_card()
+    dt = DTYPES[dtype]
+    q = _normal(4, (B, 1, H, D), dt)
+    kc = _normal(5, (2, B, Hkv, L, D), dt)[1]
+    vc = _normal(6, (2, B, Hkv, L, D), dt)[1]
+    n = torch.full((), cache_len, dtype=torch.int32, device="cuda")
+    before = da.decode_attention.launches
+    got = ops.decode_attention(q, kc, vc, n)
+    want = da.decode_attention_plain(q, kc, vc, n)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+def test_cuda_llm_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    x = torch.zeros(2, 1, 4, 12, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.flash_attention(x, x[:, :, :2], x[:, :, :2])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.decode_attention(x, torch.zeros(2, 2, 5, 12, device="cuda"),
+                             torch.zeros(2, 2, 5, 12, device="cuda"), 3)
+    with pytest.raises(TypeError):
+        ops.rmsnorm(torch.zeros(2, 8, device="cuda", dtype=torch.float16),
+                    torch.ones(8, device="cuda"))
+    with pytest.raises(ValueError):
+        ops.rmsnorm(torch.zeros(2, 8, device="cuda"),
+                    torch.ones(8, device="cuda", dtype=torch.bfloat16))
