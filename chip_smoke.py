@@ -32,11 +32,27 @@ Phases, each printing its own lines:
    sync check (the host never waits for the card between steps);
 9. agreement of the serve path with its CPU path (held against the JAX
    reference by tests/test_torch_transformer.py) on reduced
-   mistral-nemo-12b in float32: equal greedy tokens, logits within 1e-3.
+   mistral-nemo-12b in float32: equal greedy tokens, logits within 1e-3;
+10. the recurrent serve paths: zamba2-2.7b (Mamba2 + shared attention)
+   and xlstm-125m (mLSTM + sLSTM) at full width and depth in bfloat16,
+   as in phase 8 (batch 8, a 1024-token fused prefill, 64 greedy tokens),
+   with a profile of a prefill and of 4 decode steps each;
+11. agreement of each recurrent path with its CPU path (held against the
+   JAX reference by tests/test_torch_recurrent.py) on the reduced arch in
+   float32: equal greedy tokens, logits within 1e-3, and two runs on the
+   card bitwise equal, caches included.
+
+Phase 3 also holds the SSD scan and the sLSTM scan against their plain
+versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
+state) at the recurrent paths' shapes and at edge cases (several chunks,
+S below the chunk, S no multiple of 16, warm states), and flash and
+decode attention at zamba2's head dim 80; phase 4 times them.
 
 Every kernel's launches in the JSON record are those of its own path's
-run (phase 5 for the DQN kernels, the full-cache run of phase 8 for the
-serve kernels), with all counts set to 0 just before that run. The line
+run (phase 5 for the DQN kernels, the full-cache run of phase 8 for
+RMSNorm and the two attention kernels, phase 10's zamba2 run for the SSD
+scan and its xlstm run for the sLSTM scan), with all counts set to 0
+just before that run. The line
 before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
 printing it. Without a CUDA device, or without the repository's src/
@@ -70,6 +86,12 @@ PEAK_BF16_PER_S = 989e12
 SERVE_ARCH = "mistral-nemo-12b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 RING_PROMPT, RING_GEN, RING_WINDOW = 32, 32, 16
+# the recurrent serve paths, at the same batch and lengths
+RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-125m")
+# zamba2-2.7b's SSD scan (B, S, H, P, N, chunk) and xlstm-125m's sLSTM
+# scan (B, S, H, Pd) at those lengths
+SSM_PATH = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 64, 128)
+SLSTM_PATH = (SERVE_BATCH, SERVE_PROMPT, 4, 192)
 LLM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 TIMED_RUNS = 200
 # C of the profiled cycle: 4 synchronized rounds and 16 updates at W=8, F=2
@@ -130,6 +152,20 @@ def time_ms(fn, runs: int = TIMED_RUNS) -> float:
         check(misses < 20, "could not queue a timed block behind the sleep")
         per_block = max(1, per_block // 2)
     return statistics.median(samples)
+
+
+def time_graph_ms(fn, runs: int = 5) -> float:
+    """Device time of a call that launches more kernels than CUDA's
+    launch queue holds (the scans' plain versions loop over 1024 steps in
+    Python), so that it cannot be queued behind a sleep: captured once
+    into a CUDA graph, whose replay is one launch, and timed as
+    ``time_ms`` times that."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, runs=runs)
 
 
 def tree_case(P: int, n: int, gen: torch.Generator, dev):
@@ -252,6 +288,8 @@ def _clone(obj):
         return {k: _clone(v) for k, v in obj.items()}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*[_clone(v) for v in obj])
+    if isinstance(obj, tuple):
+        return tuple(_clone(v) for v in obj)
     return obj
 
 
@@ -264,6 +302,9 @@ def _paths(obj, prefix=""):
     elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
         for k, v in zip(obj._fields, obj):
             yield from _paths(v, f"{prefix}.{k}")
+    elif isinstance(obj, tuple):
+        for i, v in enumerate(obj):
+            yield from _paths(v, f"{prefix}[{i}]")
 
 
 def phase_main_path(dev):
@@ -308,8 +349,8 @@ def phase_main_path(dev):
     say(f"main eval: {time.perf_counter() - t0:.2f} s, return "
         f"{float(evals[0]):+.3f} over {spec.schedule.eval_episodes} streams")
     launches = read_launches()
-    check(launches["rmsnorm"] == launches["flash_attention"]
-          == launches["decode_attention"] == 0,
+    check(all(launches[k] == 0 for k in launches
+              if k not in ("segment_tree", "categorical_projection")),
           f"the DQN path launched a serve kernel: {launches}")
     check(torch.isfinite(evals).all().item(), "non-finite eval return")
     for path, t in _paths(carry, "carry"):
@@ -441,6 +482,8 @@ def kernel_table():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import segment_tree as st
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels import ssm_scan as ss
     csrc = "src/repro_torch/kernels/csrc/"
     tpu = "src/repro/kernels/"
     return {
@@ -455,6 +498,10 @@ def kernel_table():
         "decode_attention": (da.decode_attention,
                              csrc + "decode_attention.cu",
                              tpu + "decode_attention.py:74"),
+        "ssm_scan": (ss.ssm_scan, csrc + "ssm_scan.cu",
+                     tpu + "ssm_scan.py:77"),
+        "slstm_scan": (sl.slstm_scan, csrc + "slstm_scan.cu",
+                       tpu + "slstm_scan.py:82"),
     }
 
 
@@ -509,7 +556,8 @@ def phase_llm_parity(dev):
                 errs["rmsnorm"] = err
         for B, S, H, Hkv, D in ((2, 300, 32, 8, 128), (1, 256, 24, 2, 128),
                                 (1, 128, 4, 1, 80), (2, 200, 8, 2, 64),
-                                path["flash_attention"][:5]):
+                                path["flash_attention"][:5],
+                                (SERVE_BATCH, SERVE_PROMPT, 32, 32, 80)):
             q = _randn(gen, (B, S, H, D), dtype, dev)
             k = _randn(gen, (B, S, Hkv, D), dtype, dev)
             v = _randn(gen, (B, S, Hkv, D), dtype, dev)
@@ -523,12 +571,15 @@ def phase_llm_parity(dev):
                 if ((B, S, H, Hkv, D, window) == path["flash_attention"]
                         and dtype == torch.bfloat16):
                     errs["flash_attention"] = err
+                if S == SERVE_PROMPT and D == 80 and dtype == torch.bfloat16:
+                    errs["flash_attention D80"] = err
             del q, k, v
         for B, H, Hkv, L, D, n in ((8, 32, 8, 1088, 128, 1),
                                    (8, 32, 8, 1088, 128, 517),
                                    path["decode_attention"],
                                    (8, 32, 8, 16, 128, 40),   # ring, wrapped
-                                   (2, 24, 2, 1088, 128, 517)):
+                                   (2, 24, 2, 1088, 128, 517),
+                                   (8, 32, 32, 1088, 80, 1088)):
             q = _randn(gen, (B, 1, H, D), dtype, dev)
             kc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
             vc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
@@ -540,10 +591,13 @@ def phase_llm_parity(dev):
             if (B, H, Hkv, L, D, n) == path["decode_attention"] and \
                     dtype == torch.bfloat16:
                 errs["decode_attention"] = err
+            if D == 80 and B == 8 and dtype == torch.bfloat16:
+                errs["decode_attention D80"] = err
     say("parity rmsnorm, flash_attention, decode_attention: within 2e-4 "
         "(float32) and 2e-2 (bfloat16) at the serve path's shapes and at "
-        "S=300, GQA 12, MQA with D=80, window 64, cache_len 1/517/1088 and "
-        "a wrapped ring; max abs err in bf16 at the path's shapes: "
+        "S=300, GQA 12, MQA with D=80, window 64, cache_len 1/517/1088, "
+        "a wrapped ring and zamba2's attention (H = Hkv = 32, D 80); max "
+        "abs err in bf16 at the paths' shapes: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
 
@@ -625,10 +679,171 @@ def phase_llm_times(dev):
     return out
 
 
+def _scan_inputs(gen, B, S, H, P, N, dtype, dev):
+    """SSD scan inputs as the model hands them over: x, Bm and Cm are
+    slices of one (B, S, H P + 2 N) conv output, dt is a softplus and A
+    negative."""
+    import torch.nn.functional as F
+    conv = _randn(gen, (B, S, H * P + 2 * N), dtype, dev)
+    x = conv[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = conv[..., H * P: H * P + N], conv[..., H * P + N:]
+    dt = F.softplus(_randn(gen, (B, S, H), torch.float32, dev))
+    A = -torch.exp(_randn(gen, (H,), torch.float32, dev))
+    return x, dt, A, Bm, Cm
+
+
+def _slstm_inputs(gen, B, S, H, Pd, dtype, dev, warm: bool):
+    """sLSTM scan inputs: wx, R scaled by Pd^-1/2 (the model's init), b,
+    and the initial state (0, 0, 0, -1e9) or a random warm one."""
+    d = H * Pd
+    wx = _randn(gen, (B, S, 4 * d), dtype, dev)
+    R = _randn(gen, (4, H, Pd, Pd), torch.float32, dev) / Pd ** 0.5
+    b = 0.1 * _randn(gen, (4 * d,), torch.float32, dev)
+    if warm:
+        f = [_randn(gen, (B, d), torch.float32, dev) for _ in range(4)]
+        state = (f[0], 1.0 + f[1].abs(), torch.tanh(f[2]), f[3])
+    else:
+        z = torch.zeros((B, d), device=dev)
+        state = (z, z, z, torch.full((B, d), -1e9, device=dev))
+    return wx, R, b, state
+
+
+def phase_scan_parity(dev):
+    """The SSD scan and the sLSTM scan against their plain versions, in
+    float32 and bfloat16; returns each one's max abs error in bf16 at its
+    path's shapes (the larger of the output's and the final state's)."""
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator().manual_seed(5)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in (SSM_PATH, (2, 384, 4, 64, 64, 128),
+                     (1, 100, 2, 64, 64, 128), (2, 64, 3, 16, 8, 16)):
+            B, S, H, P, N, chunk = case
+            x, dt, A, Bm, Cm = _scan_inputs(gen, B, S, H, P, N, dtype, dev)
+            y, h = ss.ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
+            y_p, h_p = ss.ssm_scan_plain(x, dt, A, Bm, Cm)
+            ey = _llm_check("ssm_scan y", y, y_p, dtype, case)
+            eh = _llm_check("ssm_scan state", h, h_p, dtype, case)
+            if case == SSM_PATH and dtype == torch.bfloat16:
+                errs["ssm_scan"] = max(ey, eh)
+                say(f"parity ssm_scan at {case} bf16: max abs err y {ey:.3e}, "
+                    f"state {eh:.3e}")
+            del x, dt, Bm, Cm, y, h, y_p, h_p
+        for case in (SLSTM_PATH + (False,), (3, 37, 4, 192, True),
+                     (11, 20, 2, 32, True), (2, 1, 4, 8, False)):
+            B, S, H, Pd, warm = case
+            wx, R, b, st = _slstm_inputs(gen, B, S, H, Pd, dtype, dev, warm)
+            hs, st_k = sl.slstm_scan(wx, R, b, st, H)
+            hs_p, st_p = sl.slstm_scan_plain(wx, R, b, st, H)
+            eh = _llm_check("slstm_scan hs", hs, hs_p, dtype, case)
+            es = max(_llm_check("slstm_scan state", a, e, dtype, case)
+                     for a, e in zip(st_k, st_p))
+            if case[:4] == SLSTM_PATH and dtype == torch.bfloat16:
+                errs["slstm_scan"] = max(eh, es)
+                say(f"parity slstm_scan at {case[:4]} bf16: max abs err hs "
+                    f"{eh:.3e}, state {es:.3e}")
+    say("parity ssm_scan, slstm_scan: within 2e-4 (float32) and 2e-2 "
+        "(bfloat16) at the recurrent paths' shapes, 3 chunks, S = 100 below "
+        "the chunk, small heads; S = 37, 20 and 1, two batch tiles, warm "
+        "states")
+    return errs
+
+
+def phase_scan_times(dev):
+    """Kernel and plain times of the SSD and sLSTM scans at their paths'
+    shapes (bf16), with the bytes and operations the bound counts (no
+    single PyTorch call computes either op); then flash and decode
+    attention at zamba2's head dim 80, beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator().manual_seed(6)
+    bf = torch.bfloat16
+    out = {}
+    # SSD scan: x, Bm, Cm (bf16), dt and A read once, y (bf16) and the
+    # state written once. Operations, all float32: the chunked form needs
+    # C B^T once per (b, chunk) over the L(L+1)/2 causal pairs (2N each),
+    # and per (b, h, chunk) W x over those pairs (2P each), C h_prev and
+    # the state update (2 L P N each); the sequential recurrence needs
+    # 5 P N per token and head (decay, dt x B^T, add, C h). The bound
+    # counts the fewer of the two.
+    B, S, H, P, N, L = SSM_PATH
+    x, dt, A, Bm, Cm = _scan_inputs(gen, B, S, H, P, N, bf, dev)
+    k_ms = time_ms(lambda: ss.ssm_scan(x, dt, A, Bm, Cm, chunk=L), runs=50)
+    p_ms = time_graph_ms(lambda: ss.ssm_scan_plain(x, dt, A, Bm, Cm))
+    nbytes = ((2 * B * S * H * P + 2 * B * S * N) * 2 + B * S * H * 4
+              + H * 4 + B * H * P * N * 4)
+    pairs = L * (L + 1) // 2
+    nops = min(B * (S // L) * pairs * 2 * N
+               + B * H * (S // L) * (pairs * 2 * P + 4 * L * P * N),
+               B * S * H * 5 * P * N)
+    out["ssm_scan"] = (k_ms, p_ms, None, nbytes, nops, PEAK_F32_PER_S)
+    del x, dt, Bm, Cm
+    # sLSTM scan: wx (bf16), R, b and the state read once, hs (bf16) and
+    # the state written once; per row and step the recurrent product
+    # (2 x 4d x Pd) and ~30 float32 operations per unit for the gates
+    B, S, H, Pd = SLSTM_PATH
+    d = H * Pd
+    wx, R, b, st = _slstm_inputs(gen, B, S, H, Pd, bf, dev, False)
+    k_ms = time_ms(lambda: sl.slstm_scan(wx, R, b, st, H), runs=20)
+    p_ms = time_graph_ms(lambda: sl.slstm_scan_plain(wx, R, b, st, H))
+    nbytes = (B * S * 4 * d * 2 + 4 * H * Pd * Pd * 4 + 4 * d * 4
+              + 8 * B * d * 4 + B * S * d * 2)
+    nops = B * S * (2 * 4 * d * Pd + 30 * d)
+    out["slstm_scan"] = (k_ms, p_ms, None, nbytes, nops, PEAK_F32_PER_S)
+    del wx
+    for name, (k_ms, p_ms, _, nbytes, nops, _) in out.items():
+        say(f"time {name} at {SSM_PATH if name == 'ssm_scan' else SLSTM_PATH}"
+            f" bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"none, {nbytes} bytes, {nops} f32 operations")
+    # zamba2's shared attention: H = Hkv = 32, D 80 (flash attention's
+    # scalar body; decode attention with one query head per KV head)
+    Bq, Sq, Hq, D = SERVE_BATCH, SERVE_PROMPT, 32, 80
+    q = _randn(gen, (Bq, Sq, Hq, D), bf, dev)
+    k = _randn(gen, (Bq, Sq, Hq, D), bf, dev)
+    v = _randn(gen, (Bq, Sq, Hq, D), bf, dev)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms = time_ms(lambda: fa.flash_attention(q, k, v, True, None), runs=20)
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, None),
+                   runs=10)
+    l_ms = _library(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True))
+    nbytes = 4 * Bq * Sq * Hq * D * 2
+    nops = 4 * D * Bq * Hq * Sq * (Sq + 1) // 2
+    say(f"time flash_attention at ({Bq}, {Sq}, {Hq}, {Hq}, {D}) bf16: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+        f"{max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_PER_S) * 1e3:.4f}"
+        f" ms, {nbytes} bytes, {nops} operations")
+    del q, k, v, qh, kh, vh
+    Lc = n = SERVE_PROMPT + SERVE_GEN
+    q = _randn(gen, (Bq, 1, Hq, D), bf, dev)
+    kc = _randn(gen, (Bq, Hq, Lc, D), bf, dev)
+    vc = _randn(gen, (Bq, Hq, Lc, D), bf, dev)
+    nd = torch.full((), n, dtype=torch.int32, device=dev)
+    mask = (torch.arange(Lc, device=dev) < nd).reshape(1, 1, 1, Lc)
+    qh = q.transpose(1, 2).contiguous()
+    k_ms = time_ms(lambda: da.decode_attention(q, kc, vc, nd))
+    p_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, nd), runs=50)
+    l_ms = _library(lambda: F.scaled_dot_product_attention(
+        qh, kc, vc, attn_mask=mask))
+    nbytes = (2 * Bq * Hq * D + 2 * Bq * Hq * n * D) * 2 + 4
+    nops = 4 * D * Bq * Hq * n
+    say(f"time decode_attention at ({Bq}, {Hq}, {Hq}, {Lc}, {D}, {n}) bf16: "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
+        f"bound {max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_PER_S) * 1e3:.4f}"
+        f" ms, {nbytes} bytes, {nops} operations")
+    return out
+
+
 def _kernel_class(name: str) -> str:
     for key, cls in (("flash_fwd", "flash_attention"),
                      ("decode_fwd", "decode_attention"),
-                     ("rmsnorm_rows", "rmsnorm")):
+                     ("rmsnorm_rows", "rmsnorm"),
+                     ("ssd_scan", "ssm_scan"),
+                     ("slstm_scan_kernel", "slstm_scan")):
         if key in name:
             return cls
     low = name.lower()
@@ -701,7 +916,7 @@ def phase_serve(dev):
     steps = SERVE_GEN - 1
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": (2 * n_sb + 1) * (1 + steps), "flash_attention": n_sb,
-            "decode_attention": n_sb * steps}
+            "decode_attention": n_sb * steps, "ssm_scan": 0, "slstm_scan": 0}
     check(launches == want, f"serve launches {launches}, expected {want}")
     check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
           and toks.dtype == torch.int32 and toks.device.type == "cuda",
@@ -743,7 +958,8 @@ def phase_serve(dev):
     ring_steps = RING_PROMPT + RING_GEN - 1
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": (2 * n_sb + 1) * ring_steps, "flash_attention": 0,
-            "decode_attention": n_sb * ring_steps}
+            "decode_attention": n_sb * ring_steps, "ssm_scan": 0,
+            "slstm_scan": 0}
     check(ring_launches == want, f"ring launches {ring_launches}, "
           f"expected {want}")
     check(tuple(ring["tokens"].shape) == (SERVE_BATCH, RING_GEN)
@@ -798,6 +1014,110 @@ def phase_serve_against_cpu():
 
 
 
+def phase_recurrent_serve(arch: str, dev):
+    """One recurrent arch at full width and depth, bf16, through the
+    serve launcher's functions (a fused prefill and greedy decode), with
+    each kernel's launches counted, then a profile of one prefill and of
+    4 decode steps."""
+    from repro_torch.config import ATTN, MAMBA2, SLSTM
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.run(serve.parse_args(
+        ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH),
+         "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, toks = res["cfg"], res["tokens"]
+    steps = SERVE_GEN - 1
+    per = {k: cfg.superblock.count(k) * cfg.n_superblocks
+           for k in (ATTN, MAMBA2, SLSTM)}
+    # one RMSNorm per recurrent block, two per attention block, the final
+    norms = 1 + cfg.n_layers + per[ATTN]
+    want = {"segment_tree": 0, "categorical_projection": 0,
+            "rmsnorm": norms * (1 + steps), "flash_attention": per[ATTN],
+            "decode_attention": per[ATTN] * steps, "ssm_scan": per[MAMBA2],
+            "slstm_scan": per[SLSTM]}
+    check(launches == want, f"{arch} launches {launches}, expected {want}")
+    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
+          and toks.dtype == torch.int32 and toks.device.type == "cuda",
+          f"{arch} generated {toks.dtype} {tuple(toks.shape)} on "
+          f"{toks.device}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{arch}: a generated token lies outside the vocabulary")
+    check(bool(torch.isfinite(res["prefill_logits"]).all()),
+          f"{arch}: non-finite prefill logits")
+    for path, t in _paths(res["cache"]["layers"], "cache"):
+        check(t.device.type == "cuda" and bool(torch.isfinite(t).all()),
+              f"{arch}: {path} is not finite on the card")
+    check(int(res["cache"]["pos"]) == SERVE_PROMPT + steps,
+          f"{arch}: the cache's position is wrong")
+    say(f"serve {arch} full width bf16 ({res['param_count']} parameters), "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: "
+        f"init {res['init_s']:.2f} s, prefill {res['prefill_ms']:.1f} ms, "
+        f"decode {res['decode_ms_per_step']:.2f} ms/step, "
+        f"{res['tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB")
+    say(f"serve {arch} launches (prefill + {steps} decode steps): {launches}")
+    params = res["params"]
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(7)
+                            ).to(dev)
+    profile_classes(f"{arch} prefill", lambda: T.forward(
+        cfg, res["ec"], params, prompts,
+        collect_cache_len=SERVE_PROMPT + SERVE_GEN))
+    step = make_serve_step(cfg, res["ec"])
+    state = {"cache": res["cache"], "tok": toks[:, -1:]}
+
+    def decode(n=4):
+        for _ in range(n):
+            state["tok"], state["cache"] = step(params, state["cache"],
+                                                state["tok"])
+    profile_classes(f"{arch} decode", decode, steps=4)
+    return launches
+
+
+def phase_recurrent_against_cpu(arch: str):
+    """The reduced arch (float32) served on the card and on the CPU: equal
+    greedy tokens, prefill logits within 1e-3; two runs on the card
+    bitwise equal, caches included; a fused run (a 128-token prompt:
+    several SSD and mLSTM chunks) and, where the arch has attention, a
+    ring run."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    rings = ((), ("--window", "8")) if "attn" in reduced_config(
+        arch).superblock else ((),)
+    worst = 0.0
+    for extra in rings:
+        runs = {d: serve.run(serve.parse_args(
+            ["--arch", arch, "--batch", "4", "--prompt-len", "128", "--gen",
+             "12", "--device", d.split()[0], *extra]))
+            for d in ("cpu", "cuda", "cuda again")}
+        check(torch.equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"].cpu()),
+              f"{arch}: greedy tokens differ between the card and the CPU "
+              f"{extra}")
+        again = dict(_paths(runs["cuda again"]["cache"]))
+        for path, a in _paths(runs["cuda"]["cache"]):
+            check(torch.equal(a, again[path]), f"{arch}: cache{path} differs "
+                  f"between two runs on the card {extra}")
+        check(torch.equal(runs["cuda"]["tokens"], runs["cuda again"]["tokens"]),
+              f"{arch}: tokens differ between two runs on the card {extra}")
+        if not extra:
+            a = runs["cpu"]["prefill_logits"]
+            b = runs["cuda"]["prefill_logits"].cpu()
+            worst = float((a - b).abs().max())
+            check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
+                  f"{arch}: prefill logits differ between the card and the "
+                  f"CPU by {worst}")
+    say(f"serve agreement with the CPU path (reduced {arch}, float32, "
+        f"{'fused and ring' if len(rings) > 1 else 'fused'}): tokens equal, "
+        f"prefill logits within 1e-3 (max {worst:.2e}); two runs on the card "
+        f"bitwise equal, caches included")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -821,10 +1141,12 @@ def main() -> int:
 
     errs = phase_parity(dev)
     errs.update(phase_llm_parity(dev))
+    errs.update(phase_scan_parity(dev))
     times = {name: (k_ms, p_ms, l_ms, nbytes, nops, PEAK_F32_PER_S)
              for name, (k_ms, p_ms, l_ms, nbytes, nops)
              in phase_times(dev).items()}
     times.update({name: t[:6] for name, t in phase_llm_times(dev).items()})
+    times.update(phase_scan_times(dev))
     trainer, carry, launches = phase_main_path(dev)
     phase_profile(trainer.spec, carry)
     phase_against_cpu()
@@ -834,6 +1156,9 @@ def main() -> int:
     for name in ("rmsnorm", "flash_attention", "decode_attention"):
         launches[name] = serve_launches[name]
     phase_serve_against_cpu()
+    for arch, name in zip(RECURRENT_ARCHS, ("ssm_scan", "slstm_scan")):
+        launches[name] = phase_recurrent_serve(arch, dev)[name]
+        phase_recurrent_against_cpu(arch)
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

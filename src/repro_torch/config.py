@@ -6,7 +6,7 @@
 defaults, properties and validation as the reference, so a config
 compares field for field. ``ExecConfig`` keeps every field so that an
 ``ExperimentSpec`` JSON parses unchanged; of its knobs the port reads
-``compute_dtype`` and ``vocab_pad``.
+``compute_dtype``, ``vocab_pad`` and ``mlstm_chunked``.
 """
 
 from __future__ import annotations

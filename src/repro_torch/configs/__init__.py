@@ -1,10 +1,11 @@
 """Architecture registry: the port's copy of ``repro.configs``.
 
 Every architecture the reference knows has an id in ``ARCH_IDS``. The
-port carries the dense attention-only ones (``configs/<module>.py``
-defines ``CONFIG: ModelConfig`` for each, copied from the reference);
-``get_config`` of any other known id raises, naming the ROADMAP.md item
-that will port it. The DQN network lives in ``configs/dqn_nature.py``.
+port carries the dense attention-only ones and the recurrent ones
+(zamba2's Mamba2 with shared attention, xlstm's mLSTM and sLSTM):
+``configs/<module>.py`` defines ``CONFIG: ModelConfig`` for each, copied
+from the reference. ``get_config`` of any other known id raises, naming
+the ROADMAP.md item that will port it. The DQN network lives in ``configs/dqn_nature.py``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ ARCH_IDS: List[str] = list(_ARCH_MODULES)
 # the known archs that need a block kind or an MLP the port lacks, and the
 # ROADMAP.md queue 1 item 13 entry that ports it
 NOT_PORTED = {
-    "zamba2-2.7b": "item 13: Mamba2 blocks with the ssm_scan kernel",
-    "xlstm-125m": "item 13: xLSTM blocks with the slstm_scan kernel",
     "granite-moe-1b-a400m": "item 13: mixture-of-experts MLPs",
     "qwen2-moe-a2.7b": "item 13: mixture-of-experts MLPs",
     "llama-3.2-vision-11b": "item 13: cross-attention (VLM, whisper)",

@@ -6,8 +6,10 @@ Layouts stay the reference's: for the DQN carry, frames (B, H, W, C)
 uint8, conv kernels HWIO, ``fc_w`` (flat, hidden) with its rows in the
 NHWC flatten order that ``models.nature_cnn`` reproduces; for the
 transformer, the stacked ``layers/b0_attn/*`` parameters and the
-(n_sb, B, Hkv, L, hd) caches. Keys become (..., 2) int64 tensors of
-uint32 words; every other array keeps its dtype.
+(n_sb, B, Hkv, L, hd) caches, and the recurrent blocks' states, which
+are tuples of arrays (the mLSTM's (C, n, m), the sLSTM's (c, n, h, m)).
+Keys become (..., 2) int64 tensors of uint32 words; every other array
+keeps its dtype.
 """
 
 from __future__ import annotations
@@ -63,9 +65,11 @@ def carry_from_jax(carry: Any, device="cpu") -> TrainerCarry:
 
 
 def tree_from_jax(tree: Any, device="cpu") -> Any:
-    """A nested dict of arrays (transformer parameters, a decode cache) as
-    the same dict of tensors on ``device``; a cache's int32 ``pos`` and
-    bool ``ring`` become device scalars."""
+    """A nested dict (or tuple) of arrays (transformer parameters, a
+    decode cache) as the same nesting of tensors on ``device``; a cache's
+    int32 ``pos`` and bool ``ring`` become device scalars."""
     if isinstance(tree, Mapping):
         return {k: tree_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_from_jax(v, device) for v in tree)
     return tensor_from_jax(tree, device)

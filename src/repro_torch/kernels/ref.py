@@ -7,16 +7,19 @@ and ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 Layouts (kernel-native, as the reference's):
   flash_attention: q (B, H, S, D), k/v (B, Hkv, S, D)   -> (B, H, S, D)
   decode_attention: q (B, H, D), k/v (B, Hkv, L, D)     -> (B, H, D)
+  ssm_scan: x (B, H, S, P), dt (B, H, S), A (H,), Bm/Cm (B, S, N)
   rmsnorm: x (..., D), gamma (D,)
+  slstm_scan: wx (B, S, 4d), R (4, H, Pd, Pd), b (4d,), state 4x(B, d)
   segment_tree_sample: tree (2P,) sum-tree, targets (n,) -> (n,) int32
   categorical_projection: probs (B, K), rewards/dones (B,) -> (B, K)
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = float("-inf")
 
@@ -64,6 +67,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(pos < n, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhl,bhld->bhd", p, v)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The naive sequential SSD recurrence, the ground truth, from a zero
+    state: h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = h_t C_t.
+    Returns y (B, H, S, P) in x's type and the final state (B, H, P, N)
+    in float32."""
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    x32, dt32 = x.to(torch.float32), dt.to(torch.float32)
+    B32, C32 = Bm.to(torch.float32), Cm.to(torch.float32)
+    A32 = A.to(torch.float32)
+    h = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt32[:, :, t] * A32[None, :])             # (B,H)
+        h = h * decay[:, :, None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt32[:, :, t], B32[:, t], x32[:, :, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", C32[:, t], h))
+    return torch.stack(ys, dim=2).to(x.dtype), h
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
@@ -127,3 +152,42 @@ def categorical_projection(probs: torch.Tensor, rewards: torch.Tensor,
                    torch.where(in_range, p32 * wl, 0.0))
     m.scatter_add_(1, ui, p32 * wu)
     return m
+
+
+def slstm_cell(state: Tuple[torch.Tensor, ...], wx_t: torch.Tensor,
+               R32: torch.Tensor, b32: torch.Tensor, n_heads: int
+               ) -> Tuple[torch.Tensor, ...]:
+    """One sLSTM step: ``wx_t`` (B, 4d) is the step's input contribution,
+    R32 (4, H, Pd, Pd) and b32 (4d,) float32, the state (c, n, h, m) each
+    (B, d) float32. Returns the new state."""
+    c, n, h, m = state
+    B, d = h.shape
+    H = n_heads
+    rec = torch.einsum("bhp,ghpq->bghq", h.reshape(B, H, d // H),
+                       R32).reshape(B, 4 * d)
+    pre = wx_t.to(torch.float32) + rec + b32[None]
+    z_t, i_t, f_t, o_t = torch.split(pre, d, dim=-1)
+    f_log = F.logsigmoid(f_t)
+    m_new = torch.maximum(f_log + m, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(f_log + m - m_new)
+    c = f_p * c + i_p * torch.tanh(z_t)
+    n = f_p * n + i_p
+    h = torch.sigmoid(o_t) * c / torch.clamp(n, min=1.0)
+    return c, n, h, m_new
+
+
+def slstm_scan(wx: torch.Tensor, R: torch.Tensor, b: torch.Tensor,
+               state: Tuple[torch.Tensor, ...], n_heads: int
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The sequential sLSTM recurrence with exp-gate stabilisation.
+    wx: (B, S, 4d) input contributions (gates z, i, f, o in that order);
+    R: (4, H, Pd, Pd) block-diagonal recurrent weights; b: (4d,);
+    state: (c, n, h, m), each (B, d) float32. Returns hs (B, S, d) in
+    wx's type and the final state."""
+    R32, b32 = R.to(torch.float32), b.to(torch.float32)
+    hs = []
+    for t in range(wx.shape[1]):
+        state = slstm_cell(state, wx[:, t], R32, b32, n_heads)
+        hs.append(state[2])
+    return torch.stack(hs, dim=1).to(wx.dtype), tuple(state)

@@ -113,8 +113,10 @@ def param_count(spec: Tree) -> int:
     return sum(int(np.prod(leaf.shape)) for _, leaf in _leaves(spec))
 
 
-def drawn_in(spec: Tree, dtype) -> Tree:
+def drawn_in(spec: Tree, dtype, keep: Tuple[str, ...] = ()) -> Tree:
     """The spec with every drawn leaf (init ``normal`` or ``embed``)
-    stored in ``dtype``; constant leaves (norm gains) keep theirs."""
-    return _build(spec, lambda _, leaf: dataclasses.replace(leaf, dtype=dtype)
-                  if leaf.init in ("normal", "embed") else leaf)
+    stored in ``dtype``; constant leaves (norm gains) and the leaves
+    named in ``keep`` keep theirs."""
+    return _build(spec, lambda path, leaf: dataclasses.replace(
+        leaf, dtype=dtype) if leaf.init in ("normal", "embed")
+        and path[-1] not in keep else leaf)

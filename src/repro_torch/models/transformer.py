@@ -1,14 +1,17 @@
-"""The composed model, attention-only subset: the port of
-``repro.models.transformer`` for stacks of ATTN blocks (GQA
-self-attention + MLP), which is every dense architecture the reference
-supports.
+"""The composed model: the port of ``repro.models.transformer`` for
+stacks of ATTN (GQA self-attention + MLP), MAMBA2, MLSTM and SLSTM
+blocks, with zamba2's shared attention block: every dense, hybrid and
+recurrent architecture the reference supports.
 
 A model is ``cfg.superblock`` repeated ``cfg.n_superblocks`` times. The
 reference scans over stacked parameters; here a Python loop walks the
 same stacked layout, so parameters and caches keep the reference's
 paths and shapes and ``convert`` carries them across as they are:
 ``layers/b0_attn/*`` with a leading ``n_superblocks`` axis, linears as
-(d_in, d_out), caches (n_sb, B, Hkv, L, hd).
+(d_in, d_out), KV caches (n_sb, B, Hkv, L, hd), recurrent states (a
+tensor or a tuple of tensors) and conv windows (n_sb, B, W - 1, C). A
+shared attention block has one set of weights (``shared_attn``) and a
+KV cache per superblock.
 
 Public API (as the reference's):
   model_param_spec(cfg, ec)                        -> param spec tree
@@ -21,10 +24,11 @@ Public API (as the reference's):
 Drawn parameters (projections, MLP, embed, unembed) are stored in the
 compute dtype: the reference stores them in float32 but reads them only
 through ``.astype(cdtype)``, so the numbers are the same and a bfloat16
-model takes half the memory. Norm gains stay float32. Block kinds other
-than ATTN (CROSS_ATTN, MAMBA2, MLSTM, SLSTM), MoE MLPs, learned
-positions, the encoder and shared attention raise NotImplementedError
-naming their ROADMAP.md item; decode caches are updated in place.
+model takes half the memory. Constant leaves (norm gains, the SSM's
+A_log, dt_bias and D, biases) and the sLSTM's recurrent R, which the
+reference reads in float32, stay float32. CROSS_ATTN blocks, MoE MLPs,
+learned positions and the encoder raise NotImplementedError naming
+their ROADMAP.md item; decode caches are updated in place.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
                                 ExecConfig, ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import params as P
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import (gelu_mlp, rms_norm, rope_tables,
                                        rotate, round_up, swiglu)
 
@@ -46,27 +52,21 @@ DEFAULT_EXEC = ExecConfig()
 # what the port does not run yet -> its ROADMAP.md queue 1 item
 NOT_PORTED = {
     CROSS_ATTN: "item 13: cross-attention (VLM, whisper)",
-    MAMBA2: "item 13: Mamba2 blocks with the ssm_scan kernel",
-    MLSTM: "item 13: xLSTM blocks with the slstm_scan kernel",
-    SLSTM: "item 13: xLSTM blocks with the slstm_scan kernel",
     "moe": "item 13: mixture-of-experts MLPs",
     "learned": "item 13: cross-attention (VLM, whisper), with learned "
                "positions",
     "encoder": "item 13: cross-attention (VLM, whisper), with the encoder",
-    "shared_attention": "item 13: Mamba2 blocks (zamba2's shared attention)",
 }
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    missing = [k for k in cfg.superblock if k != ATTN]
+    missing = [k for k in cfg.superblock if k in NOT_PORTED]
     if cfg.moe is not None:
         missing.append("moe")
     if cfg.pos_kind == "learned":
         missing.append("learned")
     if cfg.is_encoder_decoder:
         missing.append("encoder")
-    if cfg.shared_attention:
-        missing.append("shared_attention")
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: not ported yet: " + "; ".join(
@@ -108,9 +108,28 @@ def _attn_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     }
 
 
+def _block_spec(cfg: ModelConfig, kind: str) -> Dict[str, P.Leaf]:
+    if kind == ATTN:
+        return _attn_spec(cfg)
+    if kind == MAMBA2:
+        return SSM.mamba2_param_spec(cfg)
+    if kind == MLSTM:
+        return XL.mlstm_param_spec(cfg)
+    if kind == SLSTM:
+        return XL.slstm_param_spec(cfg)
+    raise ValueError(kind)
+
+
+def _shared(cfg: ModelConfig, kind: str) -> bool:
+    """Whether the block slot reads the shared attention block."""
+    return kind == ATTN and cfg.shared_attention
+
+
 def _scanned_superblock_spec(cfg: ModelConfig) -> Dict[str, Tree]:
-    return {f"b{i}_{kind}": _attn_spec(cfg)
-            for i, kind in enumerate(cfg.superblock)}
+    """Per-superblock spec, excluding shared blocks."""
+    return {f"b{i}_{kind}": _block_spec(cfg, kind)
+            for i, kind in enumerate(cfg.superblock)
+            if not _shared(cfg, kind)}
 
 
 def padded_vocab(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> int:
@@ -130,6 +149,8 @@ def model_param_spec(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
     }
     if not cfg.tie_embeddings:
         spec["unembed"] = P.Leaf((d, vpad), ("embed", "vocab"), fan_in=d)
+    if cfg.shared_attention:
+        spec["shared_attn"] = _attn_spec(cfg)
     return spec
 
 
@@ -137,7 +158,8 @@ def init_params(cfg: ModelConfig, key: torch.Tensor,
                 ec: ExecConfig = DEFAULT_EXEC) -> Tree:
     """The reference's init for ``key`` on key's device; drawn leaves are
     stored in the compute dtype (see the module docstring)."""
-    spec = P.drawn_in(model_param_spec(cfg, ec), ec.cdtype)
+    spec = P.drawn_in(model_param_spec(cfg, ec), ec.cdtype,
+                      keep=XL.F32_LEAVES)
     return P.init_tree(spec, key)
 
 
@@ -153,7 +175,22 @@ def _layer(tree: Tree, i: int) -> Tree:
     """Superblock ``i``'s slice of a stacked tree (views, no copies)."""
     if isinstance(tree, torch.Tensor):
         return tree[i]
+    if isinstance(tree, tuple):
+        return tuple(_layer(v, i) for v in tree)
     return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def _write(dst: Tree, src: Tree) -> None:
+    """Copy a block's new recurrent state or conv window (a tensor, a
+    tuple or a dict of them) into its cache slot, in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _write(d, s)
+    else:
+        for k in src:
+            _write(dst[k], src[k])
 
 
 def _mlp(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -188,22 +225,54 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
 def _apply_block(kind: str, bp, x: torch.Tensor, rope, cfg: ModelConfig,
                  ec: ExecConfig, collect: bool = False):
     """Full-sequence block application. Returns (x, entry); with
-    ``collect``, ``entry`` holds this block's K/V in the cache layout
-    (B, Hkv, S, hd), unpadded (``forward`` writes it into the cache). An
-    ATTN block adds no auxiliary loss."""
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r}: ROADMAP.md queue 1 "
-                                  f"{NOT_PORTED[kind]}")
+    ``collect``, ``entry`` holds what this block's decode cache needs:
+    an ATTN block's K/V in the cache layout (B, Hkv, S, hd), unpadded; a
+    recurrent block's final state and the last min(S, W - 1) inputs of
+    its conv (``_store`` writes it into the cache). No block here adds
+    an auxiliary loss."""
     entry = None
-    if collect:
-        h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
-        entry = {"k": k.transpose(1, 2).to(ec.cdtype),
-                 "v": v.transpose(1, 2).to(ec.cdtype)}
-        x = x + h
+    if kind == ATTN:
+        if collect:
+            h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
+            entry = {"k": k.transpose(1, 2).to(ec.cdtype),
+                     "v": v.transpose(1, 2).to(ec.cdtype)}
+            x = x + h
+        else:
+            x = x + _self_attention(bp, x, rope, cfg)
+        return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
+                        cfg), entry
+    if kind == MAMBA2:
+        h, state, conv_in = SSM._forward(bp, x, cfg)
+        w = cfg.ssm.conv_width
+    elif kind == MLSTM:
+        h, state, conv_in = XL._mlstm_forward(bp, x, cfg,
+                                              chunked=ec.mlstm_chunked)
+        w = cfg.xlstm.conv_width
+    elif kind == SLSTM:
+        h, state = XL.slstm_forward(bp, x, cfg)
+        conv_in = None
     else:
-        x = x + _self_attention(bp, x, rope, cfg)
-    x = x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
-    return x, entry
+        raise ValueError(kind)
+    if collect:
+        entry = {"state": state}
+        if conv_in is not None:
+            entry["conv"] = conv_in[:, -(w - 1):]
+    return x + h, entry
+
+
+def _store(slot: Dict[str, Tree], entry: Dict[str, Tree]) -> None:
+    """Write a block's prefill ``entry`` into its (zeroed) cache slot in
+    place: K/V at the first S positions, a conv window's inputs at its
+    end (zeros before them stand for the causal padding, where S <
+    W - 1), the recurrent state whole."""
+    for key, val in entry.items():
+        dst = slot[key]
+        if key in ("k", "v"):
+            dst[:, :, : val.shape[2]] = val
+        elif key == "conv":
+            dst[:, dst.shape[1] - val.shape[1]:] = val
+        else:
+            _write(dst, val)
 
 
 def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -219,8 +288,9 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
 
     Returns (logits (B, S, vpad), aux_loss scalar); with
     ``collect_cache_len`` set, also returns a ready decode cache of that
-    length (the fused prefill: one forward builds the KV caches instead
-    of S decode steps). ``memory`` (cross-attention) is not ported."""
+    length (the fused prefill: one forward builds the KV caches, the
+    recurrent states and the conv windows instead of S decode steps).
+    ``memory`` (cross-attention) is not ported."""
     _check_ported(cfg)
     if memory is not None:
         raise NotImplementedError(f"cross-attention memory: ROADMAP.md queue "
@@ -228,8 +298,10 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
     B, S = tokens.shape
     dev = tokens.device
     x = params["embed"].to(ec.cdtype)[tokens.long()]
-    positions = torch.arange(S, dtype=torch.int32, device=dev)
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = None
+    if ATTN in cfg.superblock:
+        positions = torch.arange(S, dtype=torch.int32, device=dev)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     cache = None
     if collect_cache_len:
         if S > collect_cache_len:
@@ -237,15 +309,16 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
                              f"{collect_cache_len}")
         cache = init_cache(cfg, ec, B, collect_cache_len, device=dev)
         cache["pos"].fill_(S)
+    shared = params.get("shared_attn")
     for i in range(cfg.n_superblocks):
         lp = _layer(params["layers"], i)
         for j, kind in enumerate(cfg.superblock):
             name = f"b{j}_{kind}"
-            x, e = _apply_block(kind, lp[name], x, rope, cfg, ec,
+            bp = shared if _shared(cfg, kind) else lp[name]
+            x, e = _apply_block(kind, bp, x, rope, cfg, ec,
                                 collect=cache is not None)
             if cache is not None:
-                cache["layers"][name]["k"][i, :, :, :S] = e["k"]
-                cache["layers"][name]["v"][i, :, :, :S] = e["v"]
+                _store(_layer(cache["layers"][name], i), e)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)
     # the reference averages the blocks' auxiliary (MoE) losses: 0 here
@@ -259,18 +332,41 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
 # Decode path (serve_step)
 # ---------------------------------------------------------------------------
 
+def _block_cache(cfg: ModelConfig, ec: ExecConfig, kind: str, batch: int,
+                 cache_len: int, device) -> Tree:
+    if kind == ATTN:
+        shape = (batch, cfg.n_kv_heads, cache_len, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=ec.cdtype, device=device),
+                "v": torch.zeros(shape, dtype=ec.cdtype, device=device)}
+    if kind == MAMBA2:
+        return SSM.mamba2_init_cache(cfg, batch, ec.cdtype, device)
+    if kind == MLSTM:
+        return XL.mlstm_init_cache(cfg, batch, ec.cdtype, device)
+    if kind == SLSTM:
+        return {"state": XL.slstm_init_state(cfg, batch, device)}
+    raise ValueError(kind)
+
+
+def _stacked(tree: Tree, n: int) -> Tree:
+    """Each tensor of ``tree`` repeated along a new leading axis of n."""
+    if isinstance(tree, torch.Tensor):
+        return tree.unsqueeze(0).repeat(n, *([1] * tree.dim()))
+    if isinstance(tree, tuple):
+        return tuple(_stacked(v, n) for v in tree)
+    return {k: _stacked(v, n) for k, v in tree.items()}
+
+
 def init_cache(cfg: ModelConfig, ec: ExecConfig, batch: int, cache_len: int,
                ring: bool = False, *, device) -> Tree:
-    """Decode cache tree on ``device``. ``cache_len`` is the KV length (the
-    window for ring caches). ``cache["pos"]`` counts tokens already
-    consumed, as a device int32 scalar."""
+    """Decode cache tree on ``device``, one cache per superblock slot by
+    kind (a shared attention block gets a KV cache in every superblock).
+    ``cache_len`` is the KV length (the window for ring caches).
+    ``cache["pos"]`` counts tokens already consumed, as a device int32
+    scalar."""
     _check_ported(cfg)
-    shape = (cfg.n_superblocks, batch, cfg.n_kv_heads, cache_len,
-             cfg.resolved_head_dim)
-    layers = {f"b{i}_{kind}": {
-        "k": torch.zeros(shape, dtype=ec.cdtype, device=device),
-        "v": torch.zeros(shape, dtype=ec.cdtype, device=device)}
-        for i, kind in enumerate(cfg.superblock)}
+    layers = {f"b{i}_{kind}": _stacked(
+        _block_cache(cfg, ec, kind, batch, cache_len, device),
+        cfg.n_superblocks) for i, kind in enumerate(cfg.superblock)}
     return {"layers": layers,
             "pos": torch.zeros((), dtype=torch.int32, device=device),
             "ring": torch.full((), ring, dtype=torch.bool, device=device)}
@@ -282,18 +378,29 @@ def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, rope,
     """One-token block application against one superblock's cache slice
     (written in place); returns x. ``rope``, ``slot`` and ``cache_len``
     (pos + 1) depend only on the position, so ``decode_step`` makes them
-    once for all layers."""
-    if kind != ATTN:
-        raise NotImplementedError(f"block kind {kind!r}: ROADMAP.md queue 1 "
-                                  f"{NOT_PORTED[kind]}")
-    q, k, v = _qkv(bp, x, cfg)
-    q = rotate(q, rope)
-    k = rotate(k, rope)
-    kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"], k, v, slot)
-    o = A.decode_attention(q, kc, vc, cache_len)
-    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
-    x = x + torch.matmul(o, bp["wo"].to(o.dtype))
-    return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg)
+    once for all layers (None where the stack has no attention)."""
+    if kind == ATTN:
+        q, k, v = _qkv(bp, x, cfg)
+        q = rotate(q, rope)
+        k = rotate(k, rope)
+        kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"], k, v,
+                               slot)
+        o = A.decode_attention(q, kc, vc, cache_len)
+        o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+        x = x + torch.matmul(o, bp["wo"].to(o.dtype))
+        return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
+                        cfg)
+    if kind == MAMBA2:
+        h, new = SSM.mamba2_decode_step(bp, x, cache_slice, cfg)
+    elif kind == MLSTM:
+        h, new = XL.mlstm_decode_step(bp, x, cache_slice, cfg)
+    elif kind == SLSTM:
+        h, st = XL.slstm_decode_step(bp, x, cache_slice["state"], cfg)
+        new = {"state": st}
+    else:
+        raise ValueError(kind)
+    _write(cache_slice, new)
+    return x + h
 
 
 def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
@@ -303,18 +410,24 @@ def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
     on the device."""
     pos = cache["pos"]
     x = params["embed"].to(ec.cdtype)[tokens.long()]
-    L = next(iter(cache["layers"].values()))["k"].shape[3]
-    rope = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
-                       cfg.resolved_head_dim, cfg.rope_theta)
-    slot = A.cache_slot(pos, L, ring)
     cache_len = pos + 1
+    rope = slot = None
+    attn = [f"b{j}_{kind}" for j, kind in enumerate(cfg.superblock)
+            if kind == ATTN]
+    if attn:
+        L = cache["layers"][attn[0]]["k"].shape[3]
+        rope = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+        slot = A.cache_slot(pos, L, ring)
+    shared = params.get("shared_attn")
     for i in range(cfg.n_superblocks):
         lp = _layer(params["layers"], i)
         cs = _layer(cache["layers"], i)
         for j, kind in enumerate(cfg.superblock):
             name = f"b{j}_{kind}"
-            x = _decode_block(kind, lp[name], cs[name], x, rope, slot,
-                              cache_len, cfg)
+            bp = shared if _shared(cfg, kind) else lp[name]
+            x = _decode_block(kind, bp, cs[name], x, rope, slot, cache_len,
+                              cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)
     return logits, {"layers": cache["layers"], "pos": cache_len,

@@ -8,9 +8,9 @@ nothing of JAX, so they run on a machine that has only PyTorch:
 
 (``--noconftest``: the suite's conftest imports jax.) The segment tree is
 held bit for bit, the projection to atol = rtol = 1e-6; RMSNorm, flash
-attention and decode attention to atol = rtol = 2e-4 in float32 and 2e-2
-in bfloat16 (the reference's own kernel tolerances), at the shapes
-``chip_smoke.py`` checks.
+attention, decode attention, the SSD scan and the sLSTM scan to
+atol = rtol = 2e-4 in float32 and 2e-2 in bfloat16 (the reference's own
+kernel tolerances), at the shapes ``chip_smoke.py`` checks.
 """
 
 import numpy as np
@@ -23,6 +23,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import segment_tree as st
+from repro_torch.kernels import slstm_scan as sl
+from repro_torch.kernels import ssm_scan as ss
 
 PROJ_TOL = dict(atol=1e-6, rtol=1e-6)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -184,3 +186,86 @@ def test_cuda_llm_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ops.rmsnorm(torch.zeros(2, 8, device="cuda"),
                     torch.ones(8, device="cuda", dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (8, 1024, 80, 64, 64, 128),   # zamba2-2.7b's prefill: 8 chunks
+    (2, 384, 4, 64, 64, 128),     # 3 chunks
+    (1, 100, 2, 64, 64, 128),     # S below the chunk: L = S = 100
+    (2, 64, 3, 16, 8, 16)])       # small heads and state, 4 chunks
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_ssm_scan(B, S, H, P, N, chunk, dtype):
+    """x, Bm and Cm are slices of one wider tensor, as the model's conv
+    output hands them over (strided rows)."""
+    _need_card()
+    dt_ = DTYPES[dtype]
+    r = np.random.default_rng(S)
+    conv = _normal(S, (B, S, H * P + 2 * N), dt_)
+    x = conv[..., : H * P].reshape(B, S, H, P)
+    Bm, Cm = conv[..., H * P: H * P + N], conv[..., H * P + N:]
+    dt = torch.nn.functional.softplus(_normal(S + 1, (B, S, H),
+                                              torch.float32))
+    A = -torch.from_numpy(np.exp(r.standard_normal(H)).astype(np.float32)).cuda()
+    before = ss.ssm_scan.launches
+    y, h = ops.ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y_p, h_p = ss.ssm_scan_plain(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan.launches == before + 1
+    assert y.dtype == dt_ and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_p.float(), **_tol(dt_))
+    torch.testing.assert_close(h, h_p, **_tol(dt_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Pd,warm", [
+    (8, 1024, 4, 192, False),     # xlstm-125m's prefill
+    (3, 37, 4, 192, True),        # S no multiple of 16, a warm state
+    (11, 20, 2, 32, True),        # two batch tiles, the second partial
+    (2, 1, 4, 8, False)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_slstm_scan(B, S, H, Pd, warm, dtype):
+    _need_card()
+    dt_ = DTYPES[dtype]
+    d = H * Pd
+    wx = _normal(S, (B, S, 4 * d), dt_)
+    R = _normal(S + 1, (4, H, Pd, Pd), torch.float32) / float(np.sqrt(Pd))
+    b = 0.1 * _normal(S + 2, (4 * d,), torch.float32)
+    if warm:
+        f = [_normal(S + 3 + i, (B, d), torch.float32) for i in range(4)]
+        state = (f[0], 1.0 + f[1].abs(), torch.tanh(f[2]), f[3])
+    else:
+        z = torch.zeros((B, d), device="cuda")
+        state = (z, z, z, torch.full((B, d), -1e9, device="cuda"))
+    before = sl.slstm_scan.launches
+    hs, st_k = ops.slstm_scan(wx, R, b, state, H)
+    hs_p, st_p = sl.slstm_scan_plain(wx, R, b, state, H)
+    torch.cuda.synchronize()
+    assert sl.slstm_scan.launches == before + 1
+    assert hs.dtype == dt_ and hs.shape == (B, S, d)
+    torch.testing.assert_close(hs.float(), hs_p.float(), **_tol(dt_))
+    for a, e in zip(st_k, st_p):
+        torch.testing.assert_close(a, e, **_tol(dt_))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_wrappers_reject_what_the_kernels_do_not_take():
+    _need_card()
+    x = torch.zeros(1, 256, 2, 8, device="cuda")
+    dt = torch.zeros(1, 256, 2, device="cuda")
+    A = torch.zeros(2, device="cuda")
+    Bm = torch.zeros(1, 256, 8, device="cuda")
+    with pytest.raises(ValueError, match="chunk of at most"):
+        ops.ssm_scan(x, dt, A, Bm, Bm, chunk=256)
+    with pytest.raises(TypeError):
+        ops.ssm_scan(x, dt.double(), A, Bm, Bm, chunk=128)
+    state = tuple(torch.zeros(1, 12, device="cuda") for _ in range(4))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ops.slstm_scan(torch.zeros(1, 3, 48, device="cuda"),
+                       torch.zeros(4, 2, 6, 6, device="cuda"),
+                       torch.zeros(48, device="cuda"), state, 2)
+    with pytest.raises(TypeError):
+        ops.slstm_scan(torch.zeros(1, 3, 48, device="cuda"),
+                       torch.zeros(4, 3, 4, 4, device="cuda",
+                                   dtype=torch.bfloat16),
+                       torch.zeros(48, device="cuda"), state, 3)
