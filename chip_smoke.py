@@ -45,8 +45,14 @@ Phases, each printing its own lines:
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
 state) at the recurrent paths' shapes and at edge cases (several chunks,
-S below the chunk, S no multiple of 16, warm states), and flash and
-decode attention at zamba2's head dim 80; phase 4 times them.
+S below the chunk, S no multiple of 16, warm states); flash attention
+at zamba2's head dim 80 (the wgmma body, with and without a window) and
+decode attention with one query head per KV head; decode attention at
+cache lengths on and around the boundaries of the split the kernel picks
+(against the plain version and the emulation of its split); and that
+two launches of each attention kernel give the same bits at both paths'
+shapes. Phase 4 times them, and prints each attention kernel's time as
+a ratio to SDPA's at both shapes.
 
 Every kernel's launches in the JSON record are those of its own path's
 run (phase 5 for the DQN kernels, the full-cache run of phase 8 for
@@ -556,6 +562,7 @@ def phase_llm_parity(dev):
                 errs["rmsnorm"] = err
         for B, S, H, Hkv, D in ((2, 300, 32, 8, 128), (1, 256, 24, 2, 128),
                                 (1, 128, 4, 1, 80), (2, 200, 8, 2, 64),
+                                (2, 300, 32, 32, 80), (1, 192, 8, 2, 96),
                                 path["flash_attention"][:5],
                                 (SERVE_BATCH, SERVE_PROMPT, 32, 32, 80)):
             q = _randn(gen, (B, S, H, D), dtype, dev)
@@ -593,13 +600,81 @@ def phase_llm_parity(dev):
                 errs["decode_attention"] = err
             if D == 80 and B == 8 and dtype == torch.bfloat16:
                 errs["decode_attention D80"] = err
+    n_bounds = _decode_split_boundaries(gen, dev)
+    _attention_bitwise(gen, dev)
     say("parity rmsnorm, flash_attention, decode_attention: within 2e-4 "
         "(float32) and 2e-2 (bfloat16) at the serve path's shapes and at "
-        "S=300, GQA 12, MQA with D=80, window 64, cache_len 1/517/1088, "
-        "a wrapped ring and zamba2's attention (H = Hkv = 32, D 80); max "
-        "abs err in bf16 at the paths' shapes: "
+        "S=300, GQA 12, MQA with D=80, D 64 and 96, window 64 (also at "
+        "D 80), cache_len 1/517/1088, a wrapped ring, zamba2's attention "
+        f"(H = Hkv = 32, D 80) and {n_bounds} cache lengths at the decode "
+        "split's boundaries; max abs err in bf16 at the paths' shapes: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
+
+
+# the two attention shapes of the serve paths: mistral-nemo-12b (GQA 4,
+# D 128) and zamba2-2.7b's shared attention (H = Hkv = 32, D 80)
+ATTN_PATHS = {"mistral": (SERVE_BATCH, 32, 8, 128),
+              "zamba2": (SERVE_BATCH, 32, 32, 80)}
+
+
+def _decode_split_boundaries(gen, dev) -> int:
+    """Decode attention (bf16) at the paths' shapes with cache_len on and
+    around each boundary of the split the kernel picks for L = 1088 and
+    for a 16-slot ring, against the plain version and the emulation of
+    the kernel's split and combine. Returns the number of cases."""
+    from repro_torch.kernels import decode_attention as da
+    bf = torch.bfloat16
+    cases = 0
+    for B, H, Hkv, D in ATTN_PATHS.values():
+        for L in (SERVE_PROMPT + SERVE_GEN, RING_WINDOW):
+            splits, chunk = da.kernel_split_plan(B, H, Hkv, L, D, bf)
+            check(chunk == da.split_chunk(L, splits),
+                  f"decode split of L={L}: chunk {chunk}, the emulation's "
+                  f"{da.split_chunk(L, splits)}")
+            q = _randn(gen, (B, 1, H, D), bf, dev)
+            kc = _randn(gen, (B, Hkv, L, D), bf, dev)
+            vc = _randn(gen, (B, Hkv, L, D), bf, dev)
+            lens = {1, L - 1, L, L + 5}
+            for i in range(1, splits):
+                lens |= {i * chunk - 1, i * chunk, i * chunk + 1}
+            for n in sorted(lens):
+                nd = torch.full((), n, dtype=torch.int32, device=dev)
+                case = (B, H, Hkv, L, D, n, f"splits {splits}")
+                _llm_check("decode_attention", da.decode_attention(
+                    q, kc, vc, nd), da.decode_attention_plain(q, kc, vc, nd),
+                    bf, case)
+                _llm_check("decode_attention (emulated split)",
+                           da.decode_attention(q, kc, vc, nd),
+                           da.decode_attention_split(q, kc, vc, n, splits),
+                           bf, case)
+                cases += 1
+    return cases
+
+
+def _attention_bitwise(gen, dev) -> None:
+    """Two launches of each attention kernel on the same inputs give the
+    same bits, at both paths' shapes (bf16)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    L = SERVE_PROMPT + SERVE_GEN
+    for name, (B, H, Hkv, D) in ATTN_PATHS.items():
+        q = _randn(gen, (B, SERVE_PROMPT, H, D), bf, dev)
+        k = _randn(gen, (B, SERVE_PROMPT, Hkv, D), bf, dev)
+        v = _randn(gen, (B, SERVE_PROMPT, Hkv, D), bf, dev)
+        check(torch.equal(fa.flash_attention(q, k, v, True, None),
+                          fa.flash_attention(q, k, v, True, None)),
+              f"flash_attention differs between two launches ({name})")
+        qd = _randn(gen, (B, 1, H, D), bf, dev)
+        kc = _randn(gen, (B, Hkv, L, D), bf, dev)
+        vc = _randn(gen, (B, Hkv, L, D), bf, dev)
+        nd = torch.full((), L - 3, dtype=torch.int32, device=dev)
+        check(torch.equal(da.decode_attention(qd, kc, vc, nd),
+                          da.decode_attention(qd, kc, vc, nd)),
+              f"decode_attention differs between two launches ({name})")
+    say("determinism: flash and decode attention bitwise equal over two "
+        "launches at both paths' shapes (bf16)")
 
 
 def _library(fn):
@@ -674,8 +749,8 @@ def phase_llm_times(dev):
     del q, kc, vc
     for name, (k_ms, p_ms, l_ms, nbytes, nops, _, shape) in out.items():
         say(f"time {name} at {shape} bf16: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, library {l_ms:.4f} ms, {nbytes} bytes, {nops} "
-            f"operations")
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms (kernel / library "
+            f"{k_ms / l_ms:.3f}), {nbytes} bytes, {nops} operations")
     return out
 
 
@@ -800,7 +875,8 @@ def phase_scan_times(dev):
             f" bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"none, {nbytes} bytes, {nops} f32 operations")
     # zamba2's shared attention: H = Hkv = 32, D 80 (flash attention's
-    # scalar body; decode attention with one query head per KV head)
+    # wgmma body with a 64 + 16 column split; decode attention with one
+    # query head per KV head)
     Bq, Sq, Hq, D = SERVE_BATCH, SERVE_PROMPT, 32, 80
     q = _randn(gen, (Bq, Sq, Hq, D), bf, dev)
     k = _randn(gen, (Bq, Sq, Hq, D), bf, dev)
@@ -814,7 +890,8 @@ def phase_scan_times(dev):
     nbytes = 4 * Bq * Sq * Hq * D * 2
     nops = 4 * D * Bq * Hq * Sq * (Sq + 1) // 2
     say(f"time flash_attention at ({Bq}, {Sq}, {Hq}, {Hq}, {D}) bf16: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms (kernel "
+        f"/ library {k_ms / l_ms:.3f}), bound "
         f"{max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_PER_S) * 1e3:.4f}"
         f" ms, {nbytes} bytes, {nops} operations")
     del q, k, v, qh, kh, vh
@@ -832,7 +909,8 @@ def phase_scan_times(dev):
     nbytes = (2 * Bq * Hq * D + 2 * Bq * Hq * n * D) * 2 + 4
     nops = 4 * D * Bq * Hq * n
     say(f"time decode_attention at ({Bq}, {Hq}, {Hq}, {Lc}, {D}, {n}) bf16: "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {l_ms:.4f} ms "
+        f"(kernel / library {k_ms / l_ms:.3f}), "
         f"bound {max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_BF16_PER_S) * 1e3:.4f}"
         f" ms, {nbytes} bytes, {nops} operations")
     return out
@@ -1135,9 +1213,17 @@ def main() -> int:
     reports = build.build_all()
     say(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)}")
     for name, text in reports.items():
+        notes = {}  # ptxas's wgmma notes (C75xx) per kernel instance
         for line in text.splitlines():
-            if "registers" in line or "bytes stack" in line:
+            if "(C75" in line:
+                code = line.split("(C75", 1)[1][:2]
+                fn = line.rsplit("function '", 1)[-1].rstrip("'")
+                key = (f"C75{code}", fn.split("wgmma", 1)[-1][:10])
+                notes[key] = notes.get(key, 0) + 1
+            elif "registers" in line or "bytes stack" in line:
                 say(f"  {name}: {line.strip()}")
+        for (code, fn), n in sorted(notes.items()):
+            say(f"  {name}: {n} ptxas notes {code} in instance {fn}")
 
     errs = phase_parity(dev)
     errs.update(phase_llm_parity(dev))

@@ -5,21 +5,30 @@
 int32 scalar, so the decode loop never waits for the card), and returns
 (B, 1, H, D). Positions ``pos < min(cache_len, L)`` are attended: a ring
 cache passes cache_len > L once it has wrapped. On a CUDA tensor it
-launches the kernel of ``csrc/decode_attention.cu``; on a CPU tensor it
-runs the plain version of ``kernels/ref.py``. Forward only.
+launches the kernel of ``csrc/decode_attention.cu``, which splits the
+cache over a cluster of blocks and combines their partial softmax
+states in the same launch; on a CPU tensor it runs the plain version of
+``kernels/ref.py``. ``decode_attention_split`` emulates the kernel's
+split and fixed-order combine in plain PyTorch, and
+``kernel_split_plan`` reports the split the kernel picks; the tests use
+both. Forward only.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import decode_attention as _plain
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "decode_attention_split", "kernel_split_plan", "split_chunk",
+           "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 256
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -30,6 +39,57 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return _plain(q.reshape(B, H, D), k_cache, v_cache, cache_len)[:, None]
 
 
+def split_chunk(L: int, splits: int) -> int:
+    """Positions per split of a cache of capacity L, as the kernel cuts
+    it: split i covers [i chunk, (i + 1) chunk)."""
+    return (-(-L // splits) + 7) // 8 * 8
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           cache_len: Union[int, torch.Tensor],
+                           splits: int) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch (float32 throughout): each
+    of ``splits`` chunks of the cache yields (m, l, acc) over its share
+    of the valid prefix, or (-1e30, 0, 0) if it has none, and the chunks
+    are combined in split order: m* = max m_i, l = sum e^(m_i - m*) l_i,
+    out = sum e^(m_i - m*) acc_i / max(l, 1e-30). Layouts as
+    ``decode_attention``."""
+    B, _, H, D = q.shape
+    Hkv, L = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    dev = q.device
+    chunk = split_chunk(L, splits)
+    n = min(int(cache_len), L)
+    qf = q.reshape(B, Hkv, G, D).float()
+    kf, vf = k_cache.float(), v_cache.float()
+    s = torch.einsum("bkgd,bkld->bkgl", qf, kf) * D ** -0.5
+    parts = []
+    for i in range(splits):
+        lo, hi = i * chunk, min((i + 1) * chunk, n)
+        if hi <= lo:
+            parts.append((torch.full((B, Hkv, G), -1e30, device=dev),
+                          torch.zeros(B, Hkv, G, device=dev),
+                          torch.zeros(B, Hkv, G, D, device=dev)))
+            continue
+        si = s[..., lo:hi]
+        m = si.amax(-1)
+        p = torch.exp(si - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgl,bkld->bkgd", p, vf[:, :, lo:hi])))
+    m_star = parts[0][0]
+    for m, _, _ in parts[1:]:
+        m_star = torch.maximum(m_star, m)
+    l = torch.zeros_like(m_star)
+    o = torch.zeros(B, Hkv, G, D, device=dev)
+    for m, li, acc in parts:
+        w = torch.exp(m - m_star)
+        l = l + w * li
+        o = o + w[..., None] * acc
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("decode_attention")
     fn = lib.decode_attention
@@ -37,9 +97,26 @@ def _lib() -> ctypes.CDLL:
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.decode_attention_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.decode_attention_smem.argtypes = [ctypes.c_int] * 3
     lib.decode_attention_smem.restype = ctypes.c_longlong
+    lib.decode_attention_split_plan.argtypes = (
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.decode_attention_split_plan.restype = ctypes.c_int
     return lib
+
+
+def kernel_split_plan(B: int, H: int, Hkv: int, L: int, D: int,
+                      dtype: torch.dtype) -> Tuple[int, int]:
+    """(splits, chunk) that the kernel picks for these shapes on this
+    card: the splits double, up to 8, while each keeps at least 64
+    positions and the grid fits on the card at once."""
+    splits, chunk = ctypes.c_int(), ctypes.c_int()
+    err = _lib().decode_attention_split_plan(
+        B, H, Hkv, L, D, build.DTYPE_CODES[dtype], ctypes.byref(splits),
+        ctypes.byref(chunk))
+    if err != 0:
+        raise RuntimeError(f"decode_attention_split_plan: CUDA error {err}")
+    return splits.value, chunk.value
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -60,15 +137,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or v_cache.shape != k_cache.shape or Hkv == 0 or H % Hkv
             or L == 0):
         raise ValueError(f"decode_attention: inconsistent shapes {shape}")
-    if D % 8:
+    if D % 8 or D > MAX_HEAD_DIM:
         raise ValueError(f"decode_attention: the kernel takes a head dim "
-                         f"that is a multiple of 8; got {shape}")
+                         f"that is a multiple of 8 and at most "
+                         f"{MAX_HEAD_DIM}; got {shape}")
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("decode_attention: q and the caches must share one "
                          "device")
     code = build.dtype_code("decode_attention", q, k_cache, v_cache)
     lib = _lib()
-    smem = lib.decode_attention_smem(D, H // Hkv)
+    smem = lib.decode_attention_smem(D, H // Hkv, code)
     if smem > build.MAX_SMEM_BYTES:
         raise ValueError(f"decode_attention: head dim {D} with {H // Hkv} "
                          f"query heads per KV head needs {smem} bytes of "

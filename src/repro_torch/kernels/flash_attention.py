@@ -3,9 +3,12 @@
 ``flash_attention`` takes the model's layout, q (B, S, H, D) and k, v
 (B, S, Hkv, D), and returns (B, S, H, D) in q's type. On a CUDA tensor it
 launches the kernel of ``csrc/flash_attention.cu``, which reads these
-layouts through their strides (no transpose, no head-dim padding); on a
-CPU tensor it runs the plain version of ``kernels/ref.py`` in the
-kernel layout (B, H, S, D). Forward only.
+layouts through their strides (no transpose, no head-dim padding in
+device memory): bfloat16 with a head dim that is a multiple of 16 (up to
+256) runs on the tensor cores (wgmma fed by TMA through an mbarrier
+ring); float32, and bfloat16 with D % 16 == 8, run the scalar float32
+body. On a CPU tensor it runs the plain version of ``kernels/ref.py`` in
+the kernel layout (B, H, S, D). Forward only.
 """
 
 from __future__ import annotations
@@ -60,8 +63,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: inconsistent shapes {shape}")
     if D % 8 or D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the kernel takes a head dim that "
-                         f"is a multiple of 8 and at most {MAX_HEAD_DIM}; "
-                         f"got {shape}")
+                         f"is a multiple of 8 and at most {MAX_HEAD_DIM} "
+                         f"(bfloat16 with a multiple of 16 runs on the "
+                         f"tensor cores, the rest on the scalar body); got "
+                         f"{shape}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got "
                          f"{window}")

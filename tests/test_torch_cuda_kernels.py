@@ -128,7 +128,17 @@ def test_cuda_rmsnorm(rows, D, dtype):
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 300, 32, 8, 128),
                                          (1, 256, 24, 2, 128),
                                          (1, 128, 4, 1, 80),
-                                         (2, 200, 8, 2, 64)])
+                                         (2, 200, 8, 2, 64),
+                                         # the wgmma body at D 80, groups
+                                         # 1 and 4, whole and ragged tiles
+                                         (2, 1024, 4, 4, 80),
+                                         (2, 1024, 8, 2, 80),
+                                         (2, 300, 4, 4, 80),
+                                         (2, 300, 8, 2, 80),
+                                         (1, 77, 4, 4, 80),
+                                         (1, 77, 8, 2, 80),
+                                         (1, 256, 4, 2, 96),
+                                         (1, 300, 4, 1, 112)])
 @pytest.mark.parametrize("window", [None, 64])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_flash_attention(B, S, H, Hkv, D, window, dtype):
@@ -150,7 +160,8 @@ def test_cuda_flash_attention(B, S, H, Hkv, D, window, dtype):
 @pytest.mark.parametrize("B,H,Hkv,L,D,cache_len", [
     (8, 32, 8, 1088, 128, 1), (8, 32, 8, 1088, 128, 517),
     (8, 32, 8, 1088, 128, 1088), (2, 32, 8, 16, 128, 40),
-    (2, 24, 2, 1088, 128, 517), (3, 12, 1, 100, 80, 77)])
+    (2, 24, 2, 1088, 128, 517), (3, 12, 1, 100, 80, 77),
+    (8, 32, 32, 1088, 80, 1088), (8, 32, 32, 1088, 80, 300)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_decode_attention(B, H, Hkv, L, D, cache_len, dtype):
     """Group sizes 4, 12 and 12 (MQA); cache_len 40 > L = 16 is a ring
@@ -169,6 +180,63 @@ def test_cuda_decode_attention(B, H, Hkv, L, D, cache_len, dtype):
     assert da.decode_attention.launches == before + 1
     assert got.dtype == dt and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,L,D", [(8, 32, 8, 1088, 128),
+                                         (8, 32, 32, 1088, 80),
+                                         (8, 32, 8, 16, 128)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_decode_attention_at_split_boundaries(B, H, Hkv, L, D, dtype):
+    """cache_len on, just before and just after the boundaries of the
+    split the kernel picks (a cluster of `splits` blocks, `chunk`
+    positions each), at L and past it (a ring); the kernel against the
+    plain version and against the emulation of its own split."""
+    _need_card()
+    dt = DTYPES[dtype]
+    splits, chunk = da.kernel_split_plan(B, H, Hkv, L, D, dt)
+    assert 1 <= splits <= 8 and chunk == da.split_chunk(L, splits)
+    q = _normal(7, (B, 1, H, D), dt)
+    kc = _normal(8, (B, Hkv, L, D), dt)
+    vc = _normal(9, (B, Hkv, L, D), dt)
+    lens = {1, L - 1, L, L + 5}
+    for i in range(1, splits):
+        lens |= {i * chunk - 1, i * chunk, i * chunk + 1}
+    for n in sorted(x for x in lens if x >= 1):
+        nd = torch.full((), n, dtype=torch.int32, device="cuda")
+        got = ops.decode_attention(q, kc, vc, nd)
+        want = da.decode_attention_plain(q, kc, vc, nd)
+        emu = da.decode_attention_split(q, kc, vc, n, splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dt))
+        torch.testing.assert_close(got.float(), emu.float(), **_tol(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1024, 32, 8, 128),
+                                   (8, 1024, 32, 32, 80)])
+def test_cuda_attention_kernels_are_bitwise_repeatable(shape):
+    """Two launches of each attention kernel on the same inputs give the
+    same bits (no atomics; the decode splits combine in a fixed order),
+    at the serve paths' shapes in bf16."""
+    _need_card()
+    B, S, H, Hkv, D = shape
+    bf = torch.bfloat16
+    q = _normal(10, (B, S, H, D), bf)
+    k = _normal(11, (B, S, Hkv, D), bf)
+    v = _normal(12, (B, S, Hkv, D), bf)
+    a = ops.flash_attention(q, k, v, True, None)
+    b = ops.flash_attention(q, k, v, True, None)
+    L = S + 64
+    qd = _normal(13, (B, 1, H, D), bf)
+    kc = _normal(14, (B, Hkv, L, D), bf)
+    vc = _normal(15, (B, Hkv, L, D), bf)
+    nd = torch.full((), L - 3, dtype=torch.int32, device="cuda")
+    c = ops.decode_attention(qd, kc, vc, nd)
+    d = ops.decode_attention(qd, kc, vc, nd)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(c, d)
 
 
 @pytest.mark.cuda
