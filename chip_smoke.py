@@ -10,8 +10,9 @@ Phases, each printing its own lines:
    per source, sm_90a, all in parallel), with the build time;
 3. kernel parity on the card against the plain PyTorch versions, at the
    main paths' shapes and at edge cases: the segment tree bit for bit,
-   the C51 projection to 1e-6, RMSNorm, flash attention and decode
-   attention to 2e-4 in float32 and 2e-2 in bfloat16;
+   the C51 projection to 1e-6, RMSNorm (prefill and decode rows at the
+   serve paths' widths 5120, 2560, 1536 and 768), flash attention and
+   decode attention to 2e-4 in float32 and 2e-2 in bfloat16;
 4. kernel times from CUDA events (median of up to 200 launches) beside
    the plain versions' times, a one-call PyTorch yardstick where one
    exists, and the bound the card's peak rates set;
@@ -45,14 +46,20 @@ Phases, each printing its own lines:
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
 state) at the recurrent paths' shapes and at edge cases (several chunks,
-S below the chunk, S no multiple of 16, warm states); flash attention
+S below the chunk, S no multiple of 16, warm states, several batch
+tiles, the sLSTM's cluster body and its stream body at Pd 512), prints
+the sLSTM plan at its path's shape and checks that two launches there
+give the same bits; flash attention
 at zamba2's head dim 80 (the wgmma body, with and without a window) and
 decode attention with one query head per KV head; decode attention at
 cache lengths on and around the boundaries of the split the kernel picks
 (against the plain version and the emulation of its split); and that
 two launches of each attention kernel give the same bits at both paths'
-shapes. Phase 4 times them, and prints each attention kernel's time as
-a ratio to SDPA's at both shapes.
+shapes. Phase 4 times them, RMSNorm at the prefill's and the decode
+step's rows, prints each attention kernel's and RMSNorm's time as a
+ratio to SDPA's or F.rms_norm's, and times the sLSTM cluster body's
+serial floor (its DSMEM exchange and cluster barrier alone, over the
+path's 1024 steps).
 
 Every kernel's launches in the JSON record are those of its own path's
 run (phase 5 for the DQN kernels, the full-cache run of phase 8 for
@@ -99,6 +106,13 @@ RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-125m")
 SSM_PATH = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 64, 128)
 SLSTM_PATH = (SERVE_BATCH, SERVE_PROMPT, 4, 192)
 LLM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# RMSNorm's (rows, D) in parity: the serve paths' widths (mistral and
+# zamba2's Mamba2 inner 5120, zamba2 2560, xlstm's mLSTM inner 1536 and
+# 768) at prefill and decode rows, a row of 12 vectors, and a width that
+# is no multiple of the vector
+RMSNORM_CASES = tuple((rows, D) for D in (5120, 2560, 1536, 768)
+                      for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH)
+                      ) + ((7, 96), (5, 4097))
 TIMED_RUNS = 200
 # C of the profiled cycle: 4 synchronized rounds and 16 updates at W=8, F=2
 PROFILED_STEPS = 32
@@ -553,7 +567,7 @@ def phase_llm_parity(dev):
             "decode_attention": (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_GEN,
                                  128, SERVE_PROMPT + SERVE_GEN)}
     for dtype in (torch.float32, torch.bfloat16):
-        for rows, D in (path["rmsnorm"], (7, 96)):
+        for rows, D in RMSNORM_CASES:
             x = _randn(gen, (rows, D), dtype, dev)
             g = _randn(gen, (D,), torch.float32, dev)
             err = _llm_check("rmsnorm", rn.rmsnorm(x, g, 1e-5),
@@ -603,7 +617,9 @@ def phase_llm_parity(dev):
     n_bounds = _decode_split_boundaries(gen, dev)
     _attention_bitwise(gen, dev)
     say("parity rmsnorm, flash_attention, decode_attention: within 2e-4 "
-        "(float32) and 2e-2 (bfloat16) at the serve path's shapes and at "
+        "(float32) and 2e-2 (bfloat16) at the serve path's shapes, RMSNorm "
+        f"at {len(RMSNORM_CASES)} (rows, D) (prefill and decode at widths "
+        "5120, 2560, 1536 and 768, ragged and scalar rows), and at "
         "S=300, GQA 12, MQA with D=80, D 64 and 96, window 64 (also at "
         "D 80), cache_len 1/517/1088, a wrapped ring, zamba2's attention "
         f"(H = Hkv = 32, D 80) and {n_bounds} cache lengths at the decode "
@@ -700,16 +716,20 @@ def phase_llm_times(dev):
     # rmsnorm at the prefill's rows: read x once, write once, read gamma;
     # 4 float32 operations per element (square-add, two products, and the
     # cast), on the f32 units
-    rows, D = SERVE_BATCH * SERVE_PROMPT, 5120
-    x = _randn(gen, (rows, D), bf, dev)
-    g = _randn(gen, (D,), torch.float32, dev)
-    g16 = g.to(bf)
-    k_ms = time_ms(lambda: rn.rmsnorm(x, g, 1e-5))
-    p_ms = time_ms(lambda: rn.rmsnorm_plain(x, g, 1e-5), runs=50)
-    l_ms = _library(lambda: F.rms_norm(x, (D,), g16, 1e-5))
-    out["rmsnorm"] = (k_ms, p_ms, l_ms, 2 * rows * D * 2 + D * 4,
-                      4 * rows * D, PEAK_F32_PER_S, (rows, D))
-    del x
+    # at the decode step's rows too (5103 of a mistral run's 5184 launches)
+    for rows, D in ((SERVE_BATCH * SERVE_PROMPT, 5120), (SERVE_BATCH, 5120)):
+        x = _randn(gen, (rows, D), bf, dev)
+        g = _randn(gen, (D,), torch.float32, dev)
+        g16 = g.to(bf)
+        k_ms = time_ms(lambda: rn.rmsnorm(x, g, 1e-5))
+        p_ms = time_ms(lambda: rn.rmsnorm_plain(x, g, 1e-5), runs=50)
+        l_ms = _library(lambda: F.rms_norm(x, (D,), g16, 1e-5))
+        name = "rmsnorm" if rows > SERVE_BATCH else "rmsnorm decode"
+        out[name] = (k_ms, p_ms, l_ms, 2 * rows * D * 2 + D * 4,
+                     4 * rows * D, PEAK_F32_PER_S, (rows, D))
+        say(f"rmsnorm plan at ({rows}, {D}) bf16: "
+            f"{rn.rmsnorm_plan(rows, D, 2)}")
+        del x
     # flash attention at the prefill: q, k, v read once, out written once;
     # the causal triangle needs 4 D operations per (query, key) pair (QK^T
     # and PV), in bf16 on the tensor cores
@@ -747,10 +767,12 @@ def phase_llm_times(dev):
                                4 * D * B * H * n, PEAK_BF16_PER_S,
                                (B, H, Hkv, L, D, n))
     del q, kc, vc
-    for name, (k_ms, p_ms, l_ms, nbytes, nops, _, shape) in out.items():
+    for name, (k_ms, p_ms, l_ms, nbytes, nops, peak, shape) in out.items():
+        bound = max(nbytes / PEAK_BYTES_PER_S, nops / peak) * 1e3
         say(f"time {name} at {shape} bf16: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms, library {l_ms:.4f} ms (kernel / library "
-            f"{k_ms / l_ms:.3f}), {nbytes} bytes, {nops} operations")
+            f"{k_ms / l_ms:.3f}), bound {bound:.6f} ms, {nbytes} bytes, "
+            f"{nops} operations")
     return out
 
 
@@ -806,9 +828,15 @@ def phase_scan_parity(dev):
                     f"state {eh:.3e}")
             del x, dt, Bm, Cm, y, h, y_p, h_p
         for case in (SLSTM_PATH + (False,), (3, 37, 4, 192, True),
-                     (11, 20, 2, 32, True), (2, 1, 4, 8, False)):
+                     (11, 20, 2, 32, True), (2, 1, 4, 8, False),
+                     (20, 9, 4, 192, True),     # three batch tiles
+                     (2, 16, 4, 512, True)):    # the stream body
             B, S, H, Pd, warm = case
             wx, R, b, st = _slstm_inputs(gen, B, S, H, Pd, dtype, dev, warm)
+            plan = sl.kernel_plan(B, H, Pd, dtype)
+            want = "stream" if Pd in (8, 512) else "cluster"
+            check(plan.body == want, f"slstm_scan at {case} takes {plan}, "
+                  f"expected the {want} body")
             hs, st_k = sl.slstm_scan(wx, R, b, st, H)
             hs_p, st_p = sl.slstm_scan_plain(wx, R, b, st, H)
             eh = _llm_check("slstm_scan hs", hs, hs_p, dtype, case)
@@ -818,11 +846,39 @@ def phase_scan_parity(dev):
                 errs["slstm_scan"] = max(eh, es)
                 say(f"parity slstm_scan at {case[:4]} bf16: max abs err hs "
                     f"{eh:.3e}, state {es:.3e}")
+    _slstm_bitwise(gen, dev)
     say("parity ssm_scan, slstm_scan: within 2e-4 (float32) and 2e-2 "
         "(bfloat16) at the recurrent paths' shapes, 3 chunks, S = 100 below "
-        "the chunk, small heads; S = 37, 20 and 1, two batch tiles, warm "
-        "states")
+        "the chunk, small heads; S = 37, 20, 9 and 1, two and three batch "
+        "tiles, warm states, the stream body at Pd 512 and 8")
     return errs
+
+
+def _slstm_bitwise(gen, dev) -> None:
+    """The sLSTM plan at the path's shape, and two launches there giving
+    the same bits (bf16, a warm state)."""
+    from repro_torch.kernels import slstm_scan as sl
+    B, S, H, Pd = SLSTM_PATH
+    bf = torch.bfloat16
+    plan = sl.kernel_plan(B, H, Pd, bf)
+    active = sl.max_active_clusters(Pd, plan.ranks, plan.splits, bf)
+    say(f"slstm plan at {SLSTM_PATH} bf16: body {plan.body}, cluster of "
+        f"{plan.ranks} blocks, {plan.splits} slices of the Pd rows, "
+        f"{plan.smem_bytes} bytes of shared memory per block (the card's "
+        f"own count for it: {sl._lib().slstm_scan_smem(1, Pd, plan.ranks, plan.splits, 1)}), "
+        f"cudaOccupancyMaxActiveClusters {active} for "
+        f"{H * -(-B // sl.BT)} clusters")
+    check(plan.body == "cluster" and plan.ranks >= 8 and plan.smem_bytes
+          == sl._lib().slstm_scan_smem(1, Pd, plan.ranks, plan.splits, 1),
+          f"slstm_scan's plan at {SLSTM_PATH}: {plan}")
+    wx, R, b, st = _slstm_inputs(gen, B, S, H, Pd, bf, dev, True)
+    a, sa = sl.slstm_scan(wx, R, b, st, H)
+    c, sc = sl.slstm_scan(wx, R, b, st, H)
+    torch.cuda.synchronize()
+    check(torch.equal(a, c) and all(torch.equal(x, y) for x, y in zip(sa, sc)),
+          "slstm_scan differs between two launches at the path's shape")
+    say("determinism: slstm_scan bitwise equal over two launches at "
+        f"{SLSTM_PATH} bf16, final state included")
 
 
 def phase_scan_times(dev):
@@ -869,6 +925,15 @@ def phase_scan_times(dev):
               + 8 * B * d * 4 + B * S * d * 2)
     nops = B * S * (2 * 4 * d * Pd + 30 * d)
     out["slstm_scan"] = (k_ms, p_ms, None, nbytes, nops, PEAK_F32_PER_S)
+    # its serial floor: the path's S steps of the cluster body's h
+    # exchange (DSMEM stores) and cluster barrier alone
+    plan = sl.kernel_plan(B, H, Pd, bf)
+    f_ms = time_ms(lambda: sl.exchange_floor(B, S, H, Pd, plan, dev),
+                   runs=20)
+    say(f"time slstm_scan serial floor at {SLSTM_PATH} ({plan.ranks} "
+        f"ranks): {S} steps of DSMEM exchange and cluster barrier alone "
+        f"{f_ms:.4f} ms ({1e3 * f_ms / S:.3f} us a step); the scan "
+        f"{1e3 * k_ms / S:.3f} us a step")
     del wx
     for name, (k_ms, p_ms, _, nbytes, nops, _) in out.items():
         say(f"time {name} at {SSM_PATH if name == 'ssm_scan' else SLSTM_PATH}"
@@ -921,7 +986,7 @@ def _kernel_class(name: str) -> str:
                      ("decode_fwd", "decode_attention"),
                      ("rmsnorm_rows", "rmsnorm"),
                      ("ssd_scan", "ssm_scan"),
-                     ("slstm_scan_kernel", "slstm_scan")):
+                     ("slstm_scan_", "slstm_scan")):
         if key in name:
             return cls
     low = name.lower()
@@ -1231,7 +1296,8 @@ def main() -> int:
     times = {name: (k_ms, p_ms, l_ms, nbytes, nops, PEAK_F32_PER_S)
              for name, (k_ms, p_ms, l_ms, nbytes, nops)
              in phase_times(dev).items()}
-    times.update({name: t[:6] for name, t in phase_llm_times(dev).items()})
+    times.update({name: t[:6] for name, t in phase_llm_times(dev).items()
+                  if name in kernel_table()})
     times.update(phase_scan_times(dev))
     trainer, carry, launches = phase_main_path(dev)
     phase_profile(trainer.spec, carry)

@@ -120,6 +120,21 @@ def vector_ready(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def output(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """A buffer that a kernel writes in full: ``torch.empty`` without the
+    NaN fill that deterministic mode
+    (``torch.utils.deterministic.fill_uninitialized_memory``, on while
+    ``torch.use_deterministic_algorithms(True)``) gives every allocation,
+    which would cost one more write pass over the buffer per call."""
+    flags = torch.utils.deterministic
+    fill = flags.fill_uninitialized_memory
+    flags.fill_uninitialized_memory = False
+    try:
+        return torch.empty(shape, dtype=dtype, device=device)
+    finally:
+        flags.fill_uninitialized_memory = fill
+
+
 def stream_of(t: torch.Tensor) -> int:
     """The handle of the current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

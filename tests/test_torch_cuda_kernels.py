@@ -108,7 +108,10 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,D", [(8 * 1024, 5120), (7, 96), (3, 20)])
+@pytest.mark.parametrize("rows,D", [(8 * 1024, 5120), (7, 96), (3, 20),
+                                    (8, 5120), (8, 2560), (8 * 1024, 2560),
+                                    (8, 768), (8 * 1024, 768), (5, 4097),
+                                    (3, 16384)])   # the longest f32 row
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_rmsnorm(rows, D, dtype):
     _need_card()
@@ -290,11 +293,18 @@ def test_cuda_ssm_scan(B, S, H, P, N, chunk, dtype):
     (8, 1024, 4, 192, False),     # xlstm-125m's prefill
     (3, 37, 4, 192, True),        # S no multiple of 16, a warm state
     (11, 20, 2, 32, True),        # two batch tiles, the second partial
-    (2, 1, 4, 8, False)])
+    (2, 1, 4, 8, False),
+    (20, 24, 4, 192, True),       # the cluster body over three batch tiles
+    (11, 16, 4, 512, True)])      # the stream body, two batch tiles
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_slstm_scan(B, S, H, Pd, warm, dtype):
+    """At Pd 192 and 32 the kernel takes its cluster body; at Pd 512
+    (R does not fit a cluster) and 8 (units not in 16-byte columns) its
+    stream body."""
     _need_card()
     dt_ = DTYPES[dtype]
+    plan = sl.kernel_plan(B, H, Pd, dt_)
+    assert plan.body == ("stream" if Pd in (8, 512) else "cluster")
     d = H * Pd
     wx = _normal(S, (B, S, 4 * d), dt_)
     R = _normal(S + 1, (4, H, Pd, Pd), torch.float32) / float(np.sqrt(Pd))
@@ -314,6 +324,29 @@ def test_cuda_slstm_scan(B, S, H, Pd, warm, dtype):
     torch.testing.assert_close(hs.float(), hs_p.float(), **_tol(dt_))
     for a, e in zip(st_k, st_p):
         torch.testing.assert_close(a, e, **_tol(dt_))
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_is_bitwise_repeatable():
+    """Two launches of the sLSTM scan on the same inputs give the same
+    bits (each pre-activation summed in a fixed order by fixed threads,
+    no atomics), at xlstm-125m's prefill shape in bf16 with a warm
+    state, on the cluster body."""
+    _need_card()
+    B, S, H, Pd = 8, 1024, 4, 192
+    d = H * Pd
+    bf = torch.bfloat16
+    assert sl.kernel_plan(B, H, Pd, bf).body == "cluster"
+    wx = _normal(20, (B, S, 4 * d), bf)
+    R = _normal(21, (4, H, Pd, Pd), torch.float32) / float(np.sqrt(Pd))
+    b = 0.1 * _normal(22, (4 * d,), torch.float32)
+    f = [_normal(23 + i, (B, d), torch.float32) for i in range(4)]
+    state = (f[0], 1.0 + f[1].abs(), torch.tanh(f[2]), f[3])
+    hs_a, st_a = ops.slstm_scan(wx, R, b, state, H)
+    hs_b, st_b = ops.slstm_scan(wx, R, b, state, H)
+    torch.cuda.synchronize()
+    assert torch.equal(hs_a, hs_b)
+    assert all(torch.equal(x, y) for x, y in zip(st_a, st_b))
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rn
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -96,7 +97,8 @@ def test_decode_attention_matches_pallas_and_ref(H, Hkv, cache_len, dtype):
     np.testing.assert_allclose(_np(got), _np(ref), **_tol(dtype))
 
 
-@pytest.mark.parametrize("shape", [(7, 96), (2, 5, 128)])
+@pytest.mark.parametrize("shape", [(7, 96), (2, 5, 128), (3, 768),
+                                   (2, 2560)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     jx, tx = _pair(10, shape, dtype)
@@ -107,3 +109,29 @@ def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     ref = jref.rmsnorm(jx, jg, 1e-5)
     np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
     np.testing.assert_allclose(_np(got), _np(ref), **_tol(dtype))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 8 * 1024])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_rmsnorm_plan_loads_each_vector_once(rows, itemsize):
+    """At every width the serve paths normalise (mistral's and zamba2's
+    Mamba2 inner width 5120, zamba2's 2560, xlstm's mLSTM inner width
+    1536 and its 768), at decode and prefill row counts, the RMSNorm
+    kernel's layout covers the row in 16-byte vectors exactly: the
+    threads of a row times their vectors per thread equal the row's
+    vectors, so each is loaded once and none is masked, within the
+    threads the kernel's instance takes."""
+    for D in (5120, 2560, 1536, 768):
+        plan = rn.rmsnorm_plan(rows, D, itemsize)
+        assert plan.vec and plan.units * (16 // itemsize) == D
+        assert 32 * plan.warps_per_row * plan.vpt == plan.units
+        assert plan.vpt in rn.VEC_VPTS
+        threads = 32 * plan.warps_per_row * plan.rows_per_block
+        assert threads <= rn.max_threads(True, plan.vpt)
+    ragged = rn.rmsnorm_plan(rows, 21, itemsize)
+    assert not ragged.vec and 32 * ragged.warps_per_row * ragged.vpt >= 21
+    assert rn.rmsnorm_plan(rows, 5120, itemsize, aligned=False).vec is False
+    longest = 16384 if itemsize == 4 else 32768
+    assert rn.rmsnorm_plan(rows, longest, itemsize).vec
+    with pytest.raises(ValueError, match="longer than the kernel holds"):
+        rn.rmsnorm_plan(rows, longest + 16, itemsize)
