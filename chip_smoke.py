@@ -46,10 +46,12 @@ Phases, each printing its own lines:
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
 state) at the recurrent paths' shapes and at edge cases (several chunks,
-S below the chunk, S no multiple of 16, warm states, several batch
-tiles, the sLSTM's cluster body and its stream body at Pd 512), prints
-the sLSTM plan at its path's shape and checks that two launches there
-give the same bits; flash attention
+18 chunks over a cluster of fewer ranks, a chunk of 64 with a partial
+head group, S below the chunk, S no multiple of 16, warm states, several
+batch tiles, the SSD scan's cluster and scalar bodies, the sLSTM's
+cluster body and its stream body at Pd 512), prints both scans' plans at
+their paths' shapes and checks that two launches of each there give the
+same bits; flash attention
 at zamba2's head dim 80 (the wgmma body, with and without a window) and
 decode attention with one query head per KV head; decode attention at
 cache lengths on and around the boundaries of the split the kernel picks
@@ -815,8 +817,16 @@ def phase_scan_parity(dev):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for case in (SSM_PATH, (2, 384, 4, 64, 64, 128),
-                     (1, 100, 2, 64, 64, 128), (2, 64, 3, 16, 8, 16)):
+                     (1, 100, 2, 64, 64, 128), (2, 64, 3, 16, 8, 16),
+                     (1, 2304, 2, 64, 64, 128),   # 18 chunks, 8 or 16 ranks
+                     (2, 192, 12, 64, 64, 64)):   # L 64, 8 + 4 heads
             B, S, H, P, N, chunk = case
+            L = min(chunk, S)
+            plan = ss.kernel_plan(B, S, H, P, N, L, dtype)
+            want = ("cluster" if dtype == torch.bfloat16 and P == N == 64
+                    and L % 16 == 0 else "scalar")
+            check(plan.body == want, f"ssm_scan at {case} {dtype} takes "
+                  f"{plan}, expected the {want} body")
             x, dt, A, Bm, Cm = _scan_inputs(gen, B, S, H, P, N, dtype, dev)
             y, h = ss.ssm_scan(x, dt, A, Bm, Cm, chunk=chunk)
             y_p, h_p = ss.ssm_scan_plain(x, dt, A, Bm, Cm)
@@ -846,12 +856,43 @@ def phase_scan_parity(dev):
                 errs["slstm_scan"] = max(eh, es)
                 say(f"parity slstm_scan at {case[:4]} bf16: max abs err hs "
                     f"{eh:.3e}, state {es:.3e}")
+    _ssd_bitwise(gen, dev)
     _slstm_bitwise(gen, dev)
     say("parity ssm_scan, slstm_scan: within 2e-4 (float32) and 2e-2 "
-        "(bfloat16) at the recurrent paths' shapes, 3 chunks, S = 100 below "
-        "the chunk, small heads; S = 37, 20, 9 and 1, two and three batch "
-        "tiles, warm states, the stream body at Pd 512 and 8")
+        "(bfloat16) at the recurrent paths' shapes, 3 and 18 chunks, a "
+        "chunk of 64 over 12 heads, S = 100 below the chunk, small heads "
+        "(the cluster body in bf16 at P = N = 64, else the scalar body); "
+        "S = 37, 20, 9 and 1, two and three batch tiles, warm states, the "
+        "stream body at Pd 512 and 8")
     return errs
+
+
+def _ssd_bitwise(gen, dev) -> None:
+    """The SSD plan at the path's shape, and two launches there giving the
+    same bits (bf16), final state included."""
+    from repro_torch.kernels import ssm_scan as ss
+    B, S, H, P, N, L = SSM_PATH
+    bf = torch.bfloat16
+    plan = ss.kernel_plan(B, S, H, P, N, L, bf)
+    card = ss._lib().ssm_scan_smem(1, plan.heads)
+    active = ss.max_active_clusters(plan.ranks, plan.heads)
+    say(f"ssd plan at {SSM_PATH} bf16: body {plan.body}, cluster of "
+        f"{plan.ranks} blocks (one per chunk), {plan.heads} heads per block, "
+        f"{plan.smem_bytes} bytes of shared memory per block (the card's own "
+        f"count for it: {card}), cudaOccupancyMaxActiveClusters {active} for "
+        f"{B * -(-H // plan.heads)} clusters")
+    check(plan.body == "cluster" and plan.ranks == S // L
+          and plan.smem_bytes == card,
+          f"ssm_scan's plan at {SSM_PATH}: {plan}, the card counts {card} "
+          f"bytes")
+    x, dt, A, Bm, Cm = _scan_inputs(gen, B, S, H, P, N, bf, dev)
+    ya, ha = ss.ssm_scan(x, dt, A, Bm, Cm, chunk=L)
+    yb, hb = ss.ssm_scan(x, dt, A, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    check(torch.equal(ya, yb) and torch.equal(ha, hb),
+          "ssm_scan differs between two launches at the path's shape")
+    say("determinism: ssm_scan bitwise equal over two launches at "
+        f"{SSM_PATH} bf16, final state included")
 
 
 def _slstm_bitwise(gen, dev) -> None:
@@ -895,12 +936,14 @@ def phase_scan_times(dev):
     bf = torch.bfloat16
     out = {}
     # SSD scan: x, Bm, Cm (bf16), dt and A read once, y (bf16) and the
-    # state written once. Operations, all float32: the chunked form needs
-    # C B^T once per (b, chunk) over the L(L+1)/2 causal pairs (2N each),
-    # and per (b, h, chunk) W x over those pairs (2P each), C h_prev and
-    # the state update (2 L P N each); the sequential recurrence needs
-    # 5 P N per token and head (decay, dt x B^T, add, C h). The bound
-    # counts the fewer of the two.
+    # state written once. Operations: the chunked form needs C B^T once
+    # per (b, chunk) over the L(L+1)/2 causal pairs (2N each), and per
+    # (b, h, chunk) W x over those pairs (2P each), C h_prev and the
+    # state update (2 L P N each); the sequential recurrence needs 5 P N
+    # per token and head (decay, dt x B^T, add, C h). The bound counts
+    # the fewer of the two at the bf16 tensor-core peak, which the
+    # cluster body's products run on; the float32 peak's figure beside it
+    # is the bound of earlier runs.
     B, S, H, P, N, L = SSM_PATH
     x, dt, A, Bm, Cm = _scan_inputs(gen, B, S, H, P, N, bf, dev)
     k_ms = time_ms(lambda: ss.ssm_scan(x, dt, A, Bm, Cm, chunk=L), runs=50)
@@ -911,7 +954,11 @@ def phase_scan_times(dev):
     nops = min(B * (S // L) * pairs * 2 * N
                + B * H * (S // L) * (pairs * 2 * P + 4 * L * P * N),
                B * S * H * 5 * P * N)
-    out["ssm_scan"] = (k_ms, p_ms, None, nbytes, nops, PEAK_F32_PER_S)
+    out["ssm_scan"] = (k_ms, p_ms, None, nbytes, nops, PEAK_BF16_PER_S)
+    say(f"bound ssm_scan at {SSM_PATH} bf16: bytes "
+        f"{nbytes / PEAK_BYTES_PER_S * 1e3:.6f} ms, operations "
+        f"{nops / PEAK_BF16_PER_S * 1e3:.6f} ms at the bf16 peak "
+        f"({nops / PEAK_F32_PER_S * 1e3:.6f} ms at the float32 peak)")
     del x, dt, Bm, Cm
     # sLSTM scan: wx (bf16), R, b and the state read once, hs (bf16) and
     # the state written once; per row and step the recurrent product
@@ -935,10 +982,11 @@ def phase_scan_times(dev):
         f"{f_ms:.4f} ms ({1e3 * f_ms / S:.3f} us a step); the scan "
         f"{1e3 * k_ms / S:.3f} us a step")
     del wx
-    for name, (k_ms, p_ms, _, nbytes, nops, _) in out.items():
+    for name, (k_ms, p_ms, _, nbytes, nops, peak) in out.items():
+        kind = "bf16 tensor-core" if peak == PEAK_BF16_PER_S else "f32"
         say(f"time {name} at {SSM_PATH if name == 'ssm_scan' else SLSTM_PATH}"
             f" bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-            f"none, {nbytes} bytes, {nops} f32 operations")
+            f"none, {nbytes} bytes, {nops} {kind} operations")
     # zamba2's shared attention: H = Hkv = 32, D 80 (flash attention's
     # wgmma body with a 64 + 16 column split; decode attention with one
     # query head per KV head)

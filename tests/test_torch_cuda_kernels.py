@@ -264,13 +264,21 @@ def test_cuda_llm_wrappers_reject_what_the_kernels_do_not_take():
     (8, 1024, 80, 64, 64, 128),   # zamba2-2.7b's prefill: 8 chunks
     (2, 384, 4, 64, 64, 128),     # 3 chunks
     (1, 100, 2, 64, 64, 128),     # S below the chunk: L = S = 100
-    (2, 64, 3, 16, 8, 16)])       # small heads and state, 4 chunks
+    (2, 64, 3, 16, 8, 16),        # small heads and state, 4 chunks
+    (1, 2304, 2, 64, 64, 128),    # 18 chunks: more than a cluster's ranks
+    (2, 192, 12, 64, 64, 64)])    # L 64, head groups of 8 and 4
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_ssm_scan(B, S, H, P, N, chunk, dtype):
     """x, Bm and Cm are slices of one wider tensor, as the model's conv
-    output hands them over (strided rows)."""
+    output hands them over (strided rows). bf16 at P = N = 64 and a chunk
+    that is a multiple of 16 takes the cluster body, the rest the scalar
+    body."""
     _need_card()
     dt_ = DTYPES[dtype]
+    L = ss.chunk_length(S, chunk)
+    plan = ss.kernel_plan(B, S, H, P, N, L, dt_)
+    assert plan.body == ("cluster" if dt_ == torch.bfloat16 and P == N == 64
+                         and L % 16 == 0 else "scalar")
     r = np.random.default_rng(S)
     conv = _normal(S, (B, S, H * P + 2 * N), dt_)
     x = conv[..., : H * P].reshape(B, S, H, P)
