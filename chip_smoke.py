@@ -9,18 +9,23 @@ Phases, each printing its own lines:
 2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
    per source, sm_90a, all in parallel), with the build time;
 3. kernel parity on the card against the plain PyTorch versions, at the
-   main paths' shapes and at edge cases: the segment tree bit for bit,
-   the C51 projection to 1e-6, RMSNorm (prefill and decode rows at the
-   serve paths' widths 5120, 2560, 1536 and 768), flash attention and
-   decode attention to 2e-4 in float32 and 2e-2 in bfloat16;
+   main paths' shapes and at edge cases: the PER tree build and the
+   segment tree bit for bit (P up to 2^20), the C51 projection to 1e-6
+   and bit for bit against the CPU replay of its schedule, RMSNorm
+   (prefill and decode rows at the serve paths' widths 5120, 2560, 1536
+   and 768), flash attention and decode attention to 2e-4 in float32
+   and 2e-2 in bfloat16;
 4. kernel times from CUDA events (median of up to 200 launches) beside
    the plain versions' times, a one-call PyTorch yardstick where one
-   exists, and the bound the card's peak rates set;
+   exists, and the bound the card's peak rates set; an empty kernel
+   timed the same way gives the launch floor of the two latency-bound
+   DQN kernels;
 5. the DQN path: ConcurrentTrainer on examples/specs/dqn_nature84.json
    with the rainbow variant (84x84x4 pong frames, the Nature CNN, W=8,
    C=512, F=2, a 16384-slot replay): init_carry, 2 cycles and one eval,
-   with each kernel's launches counted, then one torch.profiler capture
-   of a cycle (C cut to 32) split by the cycle's phases;
+   with each kernel's launches counted (the tree build's per cycle too),
+   then one torch.profiler capture of a cycle (C cut to 32) split by the
+   cycle's phases;
 6. agreement with the port's CPU path (held against the JAX reference
    by tests/test_torch_cycle.py) on a small rainbow configuration;
 7. determinism: two runs of one full-size cycle from one carry are
@@ -64,9 +69,10 @@ serial floor (its DSMEM exchange and cluster barrier alone, over the
 path's 1024 steps).
 
 Every kernel's launches in the JSON record are those of its own path's
-run (phase 5 for the DQN kernels, the full-cache run of phase 8 for
-RMSNorm and the two attention kernels, phase 10's zamba2 run for the SSD
-scan and its xlstm run for the sLSTM scan), with all counts set to 0
+run (phase 5 for the DQN kernels and the tree build, the full-cache run
+of phase 8 for RMSNorm and the two attention kernels, phase 10's zamba2
+run for the SSD scan and its xlstm run for the sLSTM scan), with all
+counts set to 0
 just before that run. The line
 before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
@@ -116,6 +122,12 @@ RMSNORM_CASES = tuple((rows, D) for D in (5120, 2560, 1536, 768)
                       for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH)
                       ) + ((7, 96), (5, 4097))
 TIMED_RUNS = 200
+# the PER tree build's leaf counts and the descent's (P, n) in parity
+TREE_BUILD_CASES = (1, 2, 8, 2048, 16384, 1 << 20)
+SEGMENT_TREE_CASES = ((16384, 32), (16384, 4096), (1, 3), (8, 5), (2048, 64),
+                      (1 << 20, 4096))
+# the kernels whose rows carry the launch floor (floor_ms)
+LATENCY_BOUND = ("segment_tree", "categorical_projection")
 # C of the profiled cycle: 4 synchronized rounds and 16 updates at W=8, F=2
 PROFILED_STEPS = 32
 
@@ -219,8 +231,20 @@ def phase_parity(dev):
     from repro_torch.kernels import categorical_projection as cp
     from repro_torch.kernels import segment_tree as st
     gen = torch.Generator().manual_seed(0)
-    errs = {}
-    for P, n in ((16384, 32), (16384, 4096), (1, 3), (8, 5), (2048, 64)):
+    errs = {"tree_build": 0.0}
+    for P in TREE_BUILD_CASES:
+        leaves = torch.rand(P, generator=gen, dtype=torch.float64).float()
+        leaves[(3 * P) // 4:] = 0.0
+        got = st.tree_build(leaves.to(dev))
+        want = st.tree_build_plain(leaves.to(dev))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want),
+              f"tree_build differs from the plain version at P={P}: max abs "
+              f"err {err}")
+        errs["tree_build"] = max(errs["tree_build"], err)
+    say(f"parity tree_build: bitwise equal at P in {TREE_BUILD_CASES}")
+    for P, n in SEGMENT_TREE_CASES:
         tree, targets = tree_case(P, n, gen, dev)
         got = st.segment_tree_sample(tree, targets)
         want = st.segment_tree_sample_plain(tree, targets)
@@ -235,7 +259,8 @@ def phase_parity(dev):
             inside = targets < tree[1]
             check(bool((got[inside] < (3 * P) // 4).all()),
                   "segment_tree sampled a zero-mass leaf")
-    say(f"parity segment_tree: bitwise equal at P in (16384, 1, 8, 2048)")
+    say(f"parity segment_tree: bitwise equal at (P, n) in "
+        f"{SEGMENT_TREE_CASES}")
     gamma_n = 0.9 ** 3
     cases = [(32, 51, -10.0, 10.0, gamma_n), (7, 1, -1.0, -1.0, 0.99),
              (7, 8, 2.0, 2.0, 0.9), (64, 512, -10.0, 10.0, gamma_n),
@@ -253,23 +278,32 @@ def phase_parity(dev):
               f"B={B} K={K} v=[{v_min}, {v_max}]: max abs err {err}")
         check(torch.allclose(got.sum(-1), probs.sum(-1), atol=1e-5),
               "categorical_projection lost mass")
+        replay = cp.projection_hat(probs.cpu(), rewards.cpu(), dones.cpu(),
+                                   **kw)
+        check(torch.equal(got.cpu(), replay),
+              f"categorical_projection differs from projection_hat at "
+              f"B={B} K={K} v=[{v_min}, {v_max}] gamma_n={g}")
         if (B, K) == (32, 51):
             errs["categorical_projection"] = err
-    say(f"parity categorical_projection: within 1e-6 on {len(cases)} cases "
+    say(f"parity categorical_projection: within 1e-6 of the plain version "
+        f"and bitwise equal to projection_hat on {len(cases)} cases "
         f"(K=1, v_min=v_max, rewards outside the support, dones); max abs "
         f"err at B=32 K=51: {errs['categorical_projection']:.3e}")
     return errs
 
 
 def phase_times(dev):
-    """Kernel, plain and yardstick times at the main path's shapes."""
+    """Kernel, plain and yardstick times at the main path's shapes, and
+    the launch floor: an empty kernel timed the same way."""
     from repro_torch.kernels import categorical_projection as cp
     from repro_torch.kernels import segment_tree as st
     gen = torch.Generator().manual_seed(1)
     out = {}
+    floor_ms = time_ms(lambda: st.empty_launch(dev))
+    say(f"launch floor (an empty kernel through time_ms): {floor_ms:.4f} ms")
     P, n = 16384, 32
     tree, targets = tree_case(P, n, gen, dev)
-    leaves = tree[P:]
+    leaves = tree[P:].clone()
     depth = P.bit_length() - 1
     k_ms = time_ms(lambda: st.segment_tree_sample(tree, targets))
     p_ms = time_ms(lambda: st.segment_tree_sample_plain(tree, targets))
@@ -280,6 +314,10 @@ def phase_times(dev):
     nbytes = n * depth * 4 + n * 4 + n * 4
     nops = n * depth * 3
     out["segment_tree"] = (k_ms, p_ms, l_ms, nbytes, nops)
+    k_ms = time_ms(lambda: st.tree_build(leaves))
+    p_ms = time_ms(lambda: st.tree_build_plain(leaves))
+    # P leaves read once, the (2P,) tree written once, P - 1 adds
+    out["tree_build"] = (k_ms, p_ms, None, 3 * P * 4, P - 1)
     B, K = 32, 51
     probs, rewards, dones = projection_case(B, K, gen, dev)
     kw = dict(v_min=-10.0, v_max=10.0, gamma_n=0.9 ** 3)
@@ -297,10 +335,12 @@ def phase_times(dev):
     nops = B * 2 + B * K * 14
     out["categorical_projection"] = (k_ms, p_ms, None, nbytes, nops)
     for name, (k_ms, p_ms, l_ms, nbytes, nops) in out.items():
-        say(f"time {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        floor = (f", {k_ms / floor_ms:.2f}x the launch floor"
+                 if name in LATENCY_BOUND else "")
+        say(f"time {name}: kernel {k_ms:.4f} ms{floor}, plain {p_ms:.4f} ms, "
             f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, "
             f"{nbytes} bytes, {nops} f32 ops")
-    return out
+    return out, floor_ms
 
 
 def _clone(obj):
@@ -341,6 +381,8 @@ def phase_main_path(dev):
     trainer = ConcurrentTrainer(spec, device="cuda")
     C = spec.schedule.cycle_steps
     per_cycle = C // spec.algo.train_period
+    builds = len(st.tree_build_plan(
+        st.next_pow2(spec.algo.replay_capacity)))
     reset_launches()
     t0 = time.perf_counter()
     carry = trainer.init_carry()
@@ -363,6 +405,9 @@ def phase_main_path(dev):
             check(fn.launches == per_cycle * (i + 1),
                   f"{name} launched {fn.launches} times after {i + 1} "
                   f"cycle(s), expected {per_cycle * (i + 1)}")
+        check(st.tree_build.launches == builds * (i + 1) and builds <= 2,
+              f"tree_build launched {st.tree_build.launches} times after "
+              f"{i + 1} cycle(s), expected {builds} (at most 2) per cycle")
         if first is None:
             first = _clone(carry)
     t0 = time.perf_counter()
@@ -372,7 +417,8 @@ def phase_main_path(dev):
         f"{float(evals[0]):+.3f} over {spec.schedule.eval_episodes} streams")
     launches = read_launches()
     check(all(launches[k] == 0 for k in launches
-              if k not in ("segment_tree", "categorical_projection")),
+              if k not in ("segment_tree", "categorical_projection",
+                           "tree_build")),
           f"the DQN path launched a serve kernel: {launches}")
     check(torch.isfinite(evals).all().item(), "non-finite eval return")
     for path, t in _paths(carry, "carry"):
@@ -498,7 +544,8 @@ def phase_determinism(trainer, carry):
 
 def kernel_table():
     """name -> (wrapper with a ``launches`` count, CUDA source, the TPU
-    kernel it replaces), for every kernel of the port."""
+    kernel it replaces), for every kernel of the port; the last,
+    tree_build, replaces XLA code outside any Pallas call."""
     from repro_torch.kernels import categorical_projection as cp
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -524,6 +571,8 @@ def kernel_table():
                      tpu + "ssm_scan.py:77"),
         "slstm_scan": (sl.slstm_scan, csrc + "slstm_scan.cu",
                        tpu + "slstm_scan.py:82"),
+        "tree_build": (st.tree_build, csrc + "segment_tree.cu",
+                       tpu + "segment_tree.py:49"),
     }
 
 
@@ -1107,7 +1156,8 @@ def phase_serve(dev):
     steps = SERVE_GEN - 1
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": (2 * n_sb + 1) * (1 + steps), "flash_attention": n_sb,
-            "decode_attention": n_sb * steps, "ssm_scan": 0, "slstm_scan": 0}
+            "decode_attention": n_sb * steps, "ssm_scan": 0, "slstm_scan": 0,
+            "tree_build": 0}
     check(launches == want, f"serve launches {launches}, expected {want}")
     check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
           and toks.dtype == torch.int32 and toks.device.type == "cuda",
@@ -1150,7 +1200,7 @@ def phase_serve(dev):
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": (2 * n_sb + 1) * ring_steps, "flash_attention": 0,
             "decode_attention": n_sb * ring_steps, "ssm_scan": 0,
-            "slstm_scan": 0}
+            "slstm_scan": 0, "tree_build": 0}
     check(ring_launches == want, f"ring launches {ring_launches}, "
           f"expected {want}")
     check(tuple(ring["tokens"].shape) == (SERVE_BATCH, RING_GEN)
@@ -1231,7 +1281,7 @@ def phase_recurrent_serve(arch: str, dev):
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": norms * (1 + steps), "flash_attention": per[ATTN],
             "decode_attention": per[ATTN] * steps, "ssm_scan": per[MAMBA2],
-            "slstm_scan": per[SLSTM]}
+            "slstm_scan": per[SLSTM], "tree_build": 0}
     check(launches == want, f"{arch} launches {launches}, expected {want}")
     check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
           and toks.dtype == torch.int32 and toks.device.type == "cuda",
@@ -1341,9 +1391,9 @@ def main() -> int:
     errs = phase_parity(dev)
     errs.update(phase_llm_parity(dev))
     errs.update(phase_scan_parity(dev))
+    dqn_times, floor_ms = phase_times(dev)
     times = {name: (k_ms, p_ms, l_ms, nbytes, nops, PEAK_F32_PER_S)
-             for name, (k_ms, p_ms, l_ms, nbytes, nops)
-             in phase_times(dev).items()}
+             for name, (k_ms, p_ms, l_ms, nbytes, nops) in dqn_times.items()}
     times.update({name: t[:6] for name, t in phase_llm_times(dev).items()
                   if name in kernel_table()})
     times.update(phase_scan_times(dev))
@@ -1373,6 +1423,8 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": l_ms})
+        if name in LATENCY_BOUND:
+            kernels[-1]["floor_ms"] = floor_ms
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,20 @@
 ``support`` is the fixed atom grid. ``categorical_projection`` projects
 the Bellman-shifted target distribution back onto it: on a CUDA tensor
 it launches the kernel of ``csrc/categorical_projection.cu`` (the
-gather, or hat, form of the TPU kernel), on a CPU tensor it runs the
-plain scatter version of ``kernels/ref.py``. The two agree to float
-rounding (they add in another order); the op runs on a detached target,
-so it needs no backward.
+gather, or hat, form of the TPU kernel ``categorical_projection_kernel``
+in ``src/repro/kernels/categorical_projection.py``), on a CPU tensor it
+runs the plain scatter version of ``kernels/ref.py``. The two agree to
+float rounding (they add in another order); the op runs on a detached
+target, so it needs no backward.
+
+At the DQN path's shapes (B = 32, K = 51) the kernel is latency-bound,
+not bound by bytes or operations: its launch, one load, b_j's division,
+then each output's chain of K dependent adds. One block per row: each
+thread computes its atom's position b_j once into shared memory, then
+each output sums all K terms in increasing j; ``projection_hat`` replays
+that schedule on the CPU bit for bit. Every output element is written by
+the kernel (see the note in the source), so the output comes from
+``build.output``, without deterministic mode's NaN fill.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ from repro_torch.kernels.ref import (
     categorical_projection as categorical_projection_plain)
 
 __all__ = ["MAX_ATOMS", "linspace", "support", "categorical_projection",
-           "categorical_projection_plain"]
+           "categorical_projection_plain", "projection_hat"]
 
 MAX_ATOMS = 512
 
@@ -44,6 +54,39 @@ def support(num_atoms: int, v_min: float, v_max: float,
     """The (K,) atom grid z_j = v_min + jΔ; K == 1 is the single atom
     v_min."""
     return linspace(v_min, v_max, num_atoms, device)
+
+
+def _spacing(K: int, v_min: float, v_max: float):
+    """The atom spacing delta and the divisor of b_j (delta, or 1 where
+    delta is 0), as the kernel takes them."""
+    delta = (v_max - v_min) / (K - 1) if K > 1 else 0.0
+    return delta, delta if delta > 0.0 else 1.0
+
+
+def projection_hat(probs: torch.Tensor, rewards: torch.Tensor,
+                   dones: torch.Tensor, *, v_min: float, v_max: float,
+                   gamma_n: float) -> torch.Tensor:
+    """The kernel's schedule on the CPU: b_j = (clip(r + g z_j, v_min,
+    v_max) - v_min) / delta, g = gamma_n (1 - d), with its float32
+    operations in its order (the scalars rounded to float32 as the
+    kernel receives them), then the full K-term gather
+    m_i = sum over all j, in j order, of p_j max(0, 1 - |b_j - i|)."""
+    K = probs.shape[1]
+    delta, db = _spacing(K, v_min, v_max)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32)  # noqa: E731
+    lo, hi = f32(v_min), f32(v_max)
+    g = f32(gamma_n) * (f32(1.0) - dones.to(torch.float32))
+    z = lo + f32(delta) * torch.arange(K, dtype=torch.float32)
+    tz = torch.minimum(torch.maximum(
+        rewards.to(torch.float32)[:, None] + g[:, None] * z[None], lo), hi)
+    b = (tz - lo) / f32(db)
+    p = probs.to(torch.float32)
+    fi = torch.arange(K, dtype=torch.float32)[None]
+    acc = torch.zeros_like(p)
+    for j in range(K):
+        w = torch.clamp(1.0 - torch.abs(b[:, j:j + 1] - fi), min=0.0)
+        acc = acc + p[:, j:j + 1] * w
+    return acc
 
 
 def _lib() -> ctypes.CDLL:
@@ -78,16 +121,14 @@ def categorical_projection(probs: torch.Tensor, rewards: torch.Tensor,
         raise ValueError("rewards and dones must be (B,), rewards float32")
     if rewards.device != probs.device or dones.device != probs.device:
         raise ValueError("probs, rewards and dones must share a device")
-    delta = (v_max - v_min) / (K - 1) if K > 1 else 0.0
-    db = delta if delta > 0.0 else 1.0
+    delta, db = _spacing(K, v_min, v_max)
     probs = probs.contiguous()
     rewards = rewards.contiguous()
     d32 = d32.contiguous()
-    out = torch.empty((B, K), dtype=torch.float32, device=probs.device)
-    stream = torch.cuda.current_stream(probs.device).cuda_stream
+    out = build.output((B, K), torch.float32, probs.device)
     err = _lib().categorical_projection(
         probs.data_ptr(), rewards.data_ptr(), d32.data_ptr(), out.data_ptr(),
-        B, K, v_min, v_max, gamma_n, delta, db, stream)
+        B, K, v_min, v_max, gamma_n, delta, db, build.stream_of(probs))
     if err != 0:
         raise RuntimeError(
             f"categorical_projection kernel launch failed: CUDA error {err}")

@@ -1,8 +1,9 @@
 // C51 Bellman projection onto the fixed support, one block per row.
 //
 // Replaces: src/repro/kernels/categorical_projection.py,
-// categorical_projection_kernel (body _proj_kernel -> _hat_accumulate),
-// the TPU Mosaic kernel of the distributional target.
+// categorical_projection_kernel (body _proj_kernel -> _hat_accumulate;
+// twin categorical_projection_kernel_gpu), the TPU Mosaic kernel of the
+// distributional target.
 //
 // What it computes: probs (B, K) float32 over the atoms
 // z_j = v_min + j*delta, rewards and dones (B,) float32 -> (B, K)
@@ -23,15 +24,24 @@
 // it). b_j is formed with round-to-nearest intrinsics in the plain
 // version's operation order, so the kernel and kernels/ref.py see the
 // same b_j; the two then differ only in the order of the adds.
+// projection_hat in categorical_projection.py replays this schedule on
+// the CPU bit for bit. Every output element is written: block r has
+// 32 ceil(K/32) >= K threads and thread i < K writes out[r][i], for
+// every row r < B, so the wrapper takes its output from build.output,
+// without deterministic mode's NaN-fill launch.
 //
-// What bounds it on this card: at the slice's shapes (B = 32, K = 51)
-// the function reads 6.8 KB and writes 6.5 KB, about 4 ns at the HBM
-// rate; it needs about 14 operations per (row, source atom), 23 kFLOP,
-// a tenth of that time at the float32 peak, so its bound is the bytes.
-// The gather loop does K times more arithmetic (a hat weight per output
-// and source atom, about 0.5 MFLOP here) to avoid atomics, which is
-// still nanoseconds; the launch is what sets its time. K <= 512 keeps a
-// row in one block of at most 512 threads.
+// What bounds it on this card: at the DQN path's shapes (B = 32,
+// K = 51) the function reads 6.8 KB and writes 6.5 KB, about 4 ns at
+// the HBM rate, and needs 23 kFLOP, less at the float32 peak. So it is
+// latency-bound: the launch, one load, b_j's division, one barrier and
+// each output's chain of K dependent adds, most of which add an exact
+// zero. Summing only each output's window of reaching atoms (2-3 of 51
+// at the DQN path's discount) was tried: finding the windows (a read of
+// the neighbours, shared atomics, a second barrier) cost more than the
+// ~50 adds it saved at K = 51, and it paid only at K = 512, which no
+// spec uses. Packing several rows per block was tried only together
+// with the window. K <= 512 keeps a row in one block of at most 512
+// threads.
 
 #include <cuda_runtime.h>
 

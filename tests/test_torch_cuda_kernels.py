@@ -6,8 +6,10 @@ nothing of JAX, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -m cuda \
         tests/test_torch_cuda_kernels.py
 
-(``--noconftest``: the suite's conftest imports jax.) The segment tree is
-held bit for bit, the projection to atol = rtol = 1e-6; RMSNorm, flash
+(``--noconftest``: the suite's conftest imports jax.) The tree build
+and the segment tree are held bit for bit, the projection to atol =
+rtol = 1e-6 of its plain version and bit for bit against
+``projection_hat``, the CPU replay of its schedule; RMSNorm, flash
 attention, decode attention, the SSD scan and the sLSTM scan to
 atol = rtol = 2e-4 in float32 and 2e-2 in bfloat16 (the reference's own
 kernel tolerances), at the shapes ``chip_smoke.py`` checks.
@@ -58,7 +60,8 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,n", [(1, 3), (8, 5), (2048, 64), (16384, 32)])
+@pytest.mark.parametrize("P,n", [(1, 3), (8, 5), (2048, 64), (16384, 32),
+                                 (1 << 20, 4096)])
 def test_cuda_segment_tree_bitwise(P, n):
     _need_card()
     r = np.random.default_rng(P)
@@ -72,6 +75,24 @@ def test_cuda_segment_tree_bitwise(P, n):
     torch.cuda.synchronize()
     assert st.segment_tree_sample.launches == before + 1
     assert torch.equal(got, st.segment_tree_sample_plain(tree, targets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 8, 2048, 16384, 1 << 20,
+                               1 << 23])   # 3 launches
+def test_cuda_tree_build_bitwise(P):
+    _need_card()
+    r = np.random.default_rng(P)
+    leaves = r.uniform(0.0, 1.0, size=P).astype(np.float32)
+    leaves[(3 * P) // 4:] = 0.0
+    cuda = torch.from_numpy(leaves).cuda()
+    before = st.tree_build.launches
+    got = st.tree_build(cuda)
+    torch.cuda.synchronize()
+    assert st.tree_build.launches == before + len(st.tree_build_plan(P))
+    assert torch.equal(got, st.tree_build_plain(cuda))
+    assert torch.equal(got.cpu(),
+                       st.tree_build_blocked(torch.from_numpy(leaves)))
 
 
 @pytest.mark.cuda
@@ -91,11 +112,37 @@ def test_cuda_categorical_projection(B, K, v_min, v_max):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,K,v_min,v_max,gamma_n",
+                         [(32, 51, -10.0, 10.0, 0.9 ** 3),
+                          (7, 1, -1.0, -1.0, 0.99), (7, 8, 2.0, 2.0, 0.9),
+                          (64, 512, -10.0, 10.0, 0.9 ** 3),
+                          (13, 51, -10.0, 10.0, 1.0),
+                          (9, 51, -10.0, 10.0, -0.5)])
+def test_cuda_categorical_projection_matches_its_schedule(B, K, v_min, v_max,
+                                                          gamma_n):
+    """Bit for bit against the CPU replay of its schedule, the full
+    K-term gather in j order."""
+    _need_card()
+    probs, rewards, dones = (torch.from_numpy(a)
+                             for a in _proj_case(K + B, B, K))
+    kw = dict(v_min=v_min, v_max=v_max, gamma_n=gamma_n)
+    before = cp.categorical_projection.launches
+    got = ops.categorical_projection(probs.cuda(), rewards.cuda(),
+                                     dones.cuda(), **kw)
+    torch.cuda.synchronize()
+    assert cp.categorical_projection.launches == before + 1
+    assert torch.equal(got.cpu(),
+                       cp.projection_hat(probs, rewards, dones, **kw))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     _need_card()
     with pytest.raises(ValueError):
         ops.segment_tree_sample(torch.zeros(12, device="cuda"),
                                 torch.zeros(3, device="cuda"))
+    with pytest.raises(ValueError):
+        ops.tree_build(torch.zeros(12, device="cuda"))
     with pytest.raises(TypeError):
         ops.segment_tree_sample(torch.zeros(16, device="cuda"),
                                 torch.zeros(3, device="cuda",
