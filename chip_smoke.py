@@ -46,7 +46,23 @@ Phases, each printing its own lines:
 11. agreement of each recurrent path with its CPU path (held against the
    JAX reference by tests/test_torch_recurrent.py) on the reduced arch in
    float32: equal greedy tokens, logits within 1e-3, and two runs on the
-   card bitwise equal, caches included.
+   card bitwise equal, caches included;
+12. the sequential modes on catch: examples/specs/baseline_catch.json
+   and synchronized_catch.json through build_trainer (init, 2 cycles
+   with s/cycle and env-steps/s, one eval, no custom kernel launched),
+   two cycles from one carry bitwise equal, and a small configuration
+   of each mode against the CPU path (integers exact, floats to 1e-4);
+13. rainbow_fleet.json for one replica (mode concurrent, seeds 1,
+   AdamW, rainbow on catch) in pixels and in vector mode (the mlp net):
+   init and one cycle each, both DQN kernels' and the tree build's
+   launches counted over that run (C/F of each kernel per cycle);
+14. Table 1 on the card: the 14 cells of launch/table1.py at 84x84x4
+   (TABLE1_STEPS env steps a cell), each row and the paper's layout,
+   with the reference's transaction invariants (synchronized inference
+   = steps/W + 1, standard = steps + 1, updates = steps/F + 1), and what
+   one update and one inference cost, on the host and on the device.
+   Phases 12-14 run last, and the card memory still allocated after them
+   is printed.
 
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
@@ -130,6 +146,10 @@ SEGMENT_TREE_CASES = ((16384, 32), (16384, 4096), (1, 3), (8, 5), (2048, 64),
 LATENCY_BOUND = ("segment_tree", "categorical_projection")
 # C of the profiled cycle: 4 synchronized rounds and 16 updates at W=8, F=2
 PROFILED_STEPS = 32
+# the sequential modes' committed specs, and the env steps of each of
+# Table 1's 14 cells
+SEQUENTIAL_SPECS = ("baseline_catch", "synchronized_catch")
+TABLE1_STEPS = 2000
 
 
 class SmokeFailure(RuntimeError):
@@ -502,7 +522,6 @@ def phase_profile(spec, carry):
 def phase_against_cpu():
     """A small rainbow run on the card against the same run on the CPU."""
     from repro_torch.api.spec import AlgoSpec, ExperimentSpec, ScheduleSpec
-    from repro_torch.api.trainers import ConcurrentTrainer
     from repro_torch.configs.dqn_nature import get_variant
     spec = ExperimentSpec(
         env="pong", mode="concurrent", variant=get_variant("rainbow"),
@@ -510,11 +529,37 @@ def phase_against_cpu():
         schedule=ScheduleSpec(cycles=1, cycle_steps=32, prepopulate=64),
         algo=AlgoSpec(minibatch_size=8, replay_capacity=256,
                       optimizer="rmsprop"))
+    _card_vs_cpu(spec, "pong 10x10, tiny net, rainbow")
+
+
+def phase_determinism(trainer, carry, label: str = ""):
+    a, _ = trainer.cycle(_clone(carry))
+    b, _ = trainer.cycle(_clone(carry))
+    torch.cuda.synchronize()
+    pb = dict(_paths(b))
+    n = 0
+    for path, t in _paths(a):
+        check(torch.equal(t, pb[path]),
+              f"{label}carry{path} differs between runs")
+        n += 1
+    say(f"{label}determinism: two cycles from one carry bitwise equal "
+        f"({n} tensors)")
+
+
+def _spec_file(name: str):
+    from repro_torch.api.spec import ExperimentSpec
+    return ExperimentSpec.from_json(
+        (ROOT / "examples" / "specs" / f"{name}.json").read_text())
+
+
+def _card_vs_cpu(spec, label: str) -> None:
+    """One cycle of ``spec`` on the CPU and on the card from the port's
+    own init: integer state equal, floats within 1e-4."""
+    from repro_torch.api.trainers import build_trainer
     runs = {}
     for device in ("cpu", "cuda"):
-        trainer = ConcurrentTrainer(spec, device=device)
-        carry = trainer.init_carry()
-        carry, _ = trainer.cycle(carry)
+        trainer = build_trainer(spec, device=device)
+        carry, _ = trainer.cycle(trainer.init_carry())
         runs[device] = dict(_paths(carry, "carry"))
     worst = 0.0
     for path, a in runs["cpu"].items():
@@ -523,23 +568,196 @@ def phase_against_cpu():
             err = float((a - b).abs().max()) if a.numel() else 0.0
             worst = max(worst, err)
             check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
-                  f"{path}: card and CPU differ by {err}")
+                  f"{label} {path}: card and CPU differ by {err}")
         else:
-            check(torch.equal(a, b), f"{path}: card and CPU differ")
-    say(f"agreement with the CPU path (pong 10x10, tiny net, rainbow, 1 "
-        f"cycle): integer state equal, floats within 1e-4 (max {worst:.2e})")
+            check(torch.equal(a, b), f"{label} {path}: card and CPU differ")
+    say(f"agreement with the CPU path ({label}, 1 cycle): integer state "
+        f"equal, floats within 1e-4 (max {worst:.2e})")
 
 
-def phase_determinism(trainer, carry):
-    a, _ = trainer.cycle(_clone(carry))
-    b, _ = trainer.cycle(_clone(carry))
-    torch.cuda.synchronize()
-    pb = dict(_paths(b))
-    n = 0
-    for path, t in _paths(a):
-        check(torch.equal(t, pb[path]), f"carry{path} differs between runs")
-        n += 1
-    say(f"determinism: two cycles from one carry bitwise equal ({n} tensors)")
+def phase_sequential(dev):
+    """The sequential modes on catch: examples/specs/baseline_catch.json
+    and synchronized_catch.json through build_trainer on the card (init,
+    2 cycles, one eval); two cycles from one carry bitwise equal; a small
+    configuration of each mode against the CPU path."""
+    from repro_torch.api.spec import AlgoSpec, ScheduleSpec
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.configs.dqn_nature import get_variant
+    for name in SEQUENTIAL_SPECS:
+        spec = _spec_file(name)
+        trainer = build_trainer(spec, device="cuda")
+        C = spec.schedule.cycle_steps
+        reset_launches()
+        t0 = time.perf_counter()
+        carry = trainer.init_carry()
+        torch.cuda.synchronize()
+        say(f"{name} init_carry: {time.perf_counter() - t0:.2f} s "
+            f"(prepopulate {spec.schedule.prepopulate}, W={spec.envs}, "
+            f"F={spec.algo.train_period}, C={C}, {spec.variant.name}, "
+            f"{spec.algo.optimizer})")
+        for i in range(2):
+            t0 = time.perf_counter()
+            carry, m = trainer.cycle(carry)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            say(f"{name} cycle {i + 1}: {dt:.3f} s/cycle, "
+                f"{C / dt:.1f} env-steps/s, loss {float(m['loss'][0]):.6f}")
+            check(torch.isfinite(m["loss"]).all().item(),
+                  f"{name}: non-finite loss")
+        t0 = time.perf_counter()
+        evals = trainer.eval(carry, trainer.eval_key(1))
+        torch.cuda.synchronize()
+        say(f"{name} eval: {time.perf_counter() - t0:.2f} s, return "
+            f"{float(evals[0]):+.3f} over {spec.schedule.eval_episodes} "
+            "streams")
+        check(torch.isfinite(evals).all().item(), f"{name}: non-finite eval")
+        launched = {k: v for k, v in read_launches().items() if v}
+        check(not launched, f"{name} launched a kernel: {launched}")
+        want = spec.schedule.prepopulate + 2 * C
+        check(int(carry.replay["size"]) == want,
+              f"{name}: replay size {int(carry.replay['size'])}, "
+              f"expected {want}")
+        phase_determinism(trainer, carry, f"{name} ")
+        del trainer, carry
+    for mode, variant in (("baseline", "double"),
+                          ("synchronized", "dueling")):
+        spec = dataclasses.replace(
+            _spec_file(f"{mode}_catch"), variant=get_variant(variant),
+            envs=4, net="tiny",
+            schedule=ScheduleSpec(cycles=1, cycle_steps=32, prepopulate=64),
+            algo=AlgoSpec(minibatch_size=8, replay_capacity=256,
+                          train_period=4))
+        _card_vs_cpu(spec, f"{mode}, catch 10x10, tiny net, {variant}")
+
+
+def phase_fleet(dev):
+    """rainbow_fleet.json for one replica (mode concurrent, seeds 1;
+    AdamW; rainbow on catch), in pixels and in vector mode (the mlp net):
+    init and one cycle each, both DQN kernels' launches counted over
+    that run. Returns the counts of the two runs together."""
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.kernels import segment_tree as st
+    base = dataclasses.replace(_spec_file("rainbow_fleet"),
+                               mode="concurrent", seeds=1)
+    total = {}
+    for obs in ("pixels", "vector"):
+        spec = dataclasses.replace(base, obs_mode=obs)
+        trainer = build_trainer(spec, device="cuda")
+        C = spec.schedule.cycle_steps
+        updates = C // spec.algo.train_period
+        builds = len(st.tree_build_plan(
+            st.next_pow2(spec.algo.replay_capacity)))
+        reset_launches()
+        t0 = time.perf_counter()
+        carry = trainer.init_carry()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        carry, m = trainer.cycle(carry)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        say(f"fleet replica, catch {obs} ({spec.variant.name}, "
+            f"{spec.algo.optimizer}): init "
+            f"{init_s:.2f} s, cycle {dt:.3f} s/cycle, {C / dt:.1f} "
+            f"env-steps/s, loss {float(m['loss'][0]):.6f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(torch.isfinite(m["loss"]).all().item(),
+              f"fleet {obs}: non-finite loss")
+        for name in ("segment_tree", "categorical_projection"):
+            check(launches[name] == updates,
+                  f"fleet {obs}: {name} launched {launches[name]} times, "
+                  f"expected {updates}")
+        check(0 < launches["tree_build"] <= builds,
+              f"fleet {obs}: tree_build launched {launches['tree_build']} "
+              f"times, expected {builds}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        del trainer, carry
+    return total
+
+
+def phase_table1(dev):
+    """Table 1 on the card: the 14 cells of launch/table1.py at the
+    Nature geometry (84x84x4), with the reference's transaction
+    invariants."""
+    from repro_torch.launch import table1
+    t0 = time.perf_counter()
+    rows = table1.run_table1(steps=TABLE1_STEPS, frame_size=84,
+                             device="cuda")
+    wall = time.perf_counter() - t0
+    steps, F = TABLE1_STEPS, 4
+    say(f"table1: {len(rows)} cells of {steps} env steps each (84x84x4, "
+        f"Nature CNN, F={F}, C={max(steps // 8, 64)}, replay 50000), "
+        f"{wall:.1f} s")
+    for line in table1.format_rows(rows).splitlines():
+        say(f"table1 {line}")
+    for line in table1.format_tables(rows).splitlines():
+        say(f"table1 {line}")
+    check(len(rows) == 14, f"table1 ran {len(rows)} cells, expected 14")
+    for r in rows:
+        sync = r["variant"] in ("synchronized", "both")
+        want = (steps // r["threads"] if sync else steps) + 1
+        check(r["infer_tx"] == want,
+              f"table1 {r['variant']}-{r['threads']}: {r['infer_tx']} "
+              f"inference transactions, expected {want}")
+        check(r["update_tx"] == steps // F + 1,
+              f"table1 {r['variant']}-{r['threads']}: {r['update_tx']} "
+              f"update transactions, expected {steps // F + 1}")
+    say("table1 invariants: synchronized inference = steps/W + 1, standard "
+        "= steps + 1, updates = steps/F + 1 in every cell")
+    _transaction_costs(dev)
+
+
+def _transaction_costs(dev, runs: int = 50) -> None:
+    """What Table 1's two transactions cost at 84x84x4: an update
+    (minibatch 32) and an inference (batch 1 and W=8), each as the host's
+    time per call and the device's (``time_ms``, queued behind a sleep on
+    the stream the runner uses)."""
+    from repro_torch import rng
+    from repro_torch.core.host_runner import HostDQNRunner
+    from repro_torch.launch import table1
+    from repro_torch.models.nature_cnn import q_forward, q_init
+    ncfg = table1.table1_config(84, 3)
+    runner = HostDQNRunner(
+        lambda p, o: q_forward(p, o, ncfg),
+        q_init(ncfg, 3, rng.PRNGKey(0, device=dev)),
+        table1.table1_dqn_config(TABLE1_STEPS, 8, ncfg.frame_stack),
+        concurrent=True, synchronized=True, n_envs=8, frame_size=84,
+        device="cuda")
+    runner.run(0, prepopulate=256)
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        runner._dispatch_update(block=False)
+    queue_s = (time.perf_counter() - t0) / runs
+    runner._wait_trainer()
+    total_s = (time.perf_counter() - t0) / runs
+    with torch.cuda.stream(runner.trainer_stream):
+        update_ms = time_ms(lambda: runner._dispatch_update(block=False),
+                            runs=runs)
+    runner._wait_trainer()
+    runner.pending.clear()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        runner._act(0.0, [0])
+    act1_s = (time.perf_counter() - t0) / runs
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        runner._act(0.0, list(range(8)))
+    act8_s = (time.perf_counter() - t0) / runs
+    with torch.cuda.stream(runner.sampler_stream):
+        frames = runner._to_device(runner.stacks)
+        infer1_ms = time_ms(lambda: runner._infer(runner.target, frames[:1]),
+                            runs=runs)
+        infer8_ms = time_ms(lambda: runner._infer(runner.target, frames),
+                            runs=runs)
+    say(f"table1 one update (minibatch 32): host {queue_s * 1e3:.3f} ms to "
+        f"queue ({total_s * 1e3:.3f} ms per update over {runs} queued "
+        f"back to back), device {update_ms:.3f} ms")
+    say(f"table1 one inference transaction (host round trip, stack to "
+        f"action): {act1_s * 1e3:.3f} ms at batch 1, {act8_s * 1e3:.3f} ms "
+        f"at batch 8; device forward {infer1_ms:.3f} ms at batch 1, "
+        f"{infer8_ms:.3f} ms at batch 8")
 
 
 def kernel_table():
@@ -1409,6 +1627,24 @@ def main() -> int:
     for arch, name in zip(RECURRENT_ARCHS, ("ssm_scan", "slstm_scan")):
         launches[name] = phase_recurrent_serve(arch, dev)[name]
         phase_recurrent_against_cpu(arch)
+    # the catch phases come after the serve phases: each stream they use
+    # keeps card memory (below), which would count in the serve peaks
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    phase_sequential(dev)
+    fleet = phase_fleet(dev)
+    for name in ("segment_tree", "categorical_projection", "tree_build"):
+        check(fleet[name] > 0, f"{name} never launched on the catch fleet")
+    phase_table1(dev)
+    after = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    say(f"catch phases (sequential, fleet, table1): "
+        f"{time.perf_counter() - t0:.1f} s; card memory allocated "
+        f"{held / 1e9:.3f} GB before, {after / 1e9:.3f} GB after, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB with cuBLAS's "
+        "per-stream workspaces cleared")
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

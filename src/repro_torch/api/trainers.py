@@ -1,35 +1,92 @@
-"""The concurrent trainer: the port of ``repro.api.trainers``'
-``ConcurrentTrainer`` (Algorithm 1 for a single replica).
+"""The execution-mode registry and its trainers: the port of
+``repro.api.trainers``.
 
-    trainer = ConcurrentTrainer(spec, device="cuda")
+    trainer = build_trainer(spec, device="cuda")
     carry   = trainer.init_carry()
     carry, metrics = trainer.cycle(carry)
     returns = trainer.eval(carry, trainer.eval_key(i))
 
-As in the reference, metrics, eval returns and ``steps`` carry a leading
-replica axis of size 1. The other execution modes (baseline,
-synchronized, population) are later work (ROADMAP.md, queue 1 items 9
-and 10).
+Modes register in ``TRAINERS`` through ``register_trainer``, and
+``build_trainer`` dispatches on ``spec.mode``. As in the reference,
+metrics, eval returns and ``steps`` carry a leading replica axis of
+size 1. The ported modes:
+
+==============  ============================================================
+baseline        Standard DQN (Figure 1a): act from the current θ, one
+                blocking update every F steps, experiences enter 𝒟 at
+                once (``core.baseline``). The W streams are batched; the
+                per-stream transaction cost is the host runner's
+                (``core.host_runner``, ``launch/table1.py``).
+synchronized    The same sequential structure over W >= 2 streams
+                aggregated into one batched Q call per round; equal to
+                ``baseline`` at equal W.
+concurrent      Algorithm 1: the C-cycle (θ⁻ acting, a training burst on
+                the snapshot of 𝒟, the flush at the boundary).
+==============  ============================================================
+
+``population`` (a replica axis of concurrent carries) is later work
+(ROADMAP.md, queue 1 item 9); ``build_trainer`` names it.
+``baseline``/``synchronized`` support only loss-level variants (double,
+dueling): PER, n-step, C51 and NoisyNet need the concurrent cycle's
+stage-then-flush machinery and are refused at build time.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from repro_torch.api.spec import ExperimentSpec
-from repro_torch.core.concurrent import (EVAL_STREAM_TAG, TrainerCarry,
-                                         make_concurrent_cycle, replica_key)
+from repro_torch import rng
+from repro_torch.api.spec import MODES, ExperimentSpec
+from repro_torch.core.baseline import BaselineCarry, make_baseline_chunk
+from repro_torch.core.concurrent import (EVAL_STREAM_TAG,
+                                         make_concurrent_cycle, prepopulate,
+                                         replica_key)
 from repro_torch.core.population import make_replica_init
-from repro_torch.core.synchronized import evaluate
+from repro_torch.core.replay import replay_init
+from repro_torch.core.synchronized import evaluate, sampler_init
 from repro_torch.envs.games import make_env
-from repro_torch.envs.preprocess import pixel_obs
+from repro_torch.envs.preprocess import pixel_obs, vector_obs
 from repro_torch.models.nature_cnn import q_forward, q_init, q_logits
+from repro_torch.optim.adamw import adamw
 from repro_torch.optim.rmsprop import centered_rmsprop
 from repro_torch.runtime import configure
 
-__all__ = ["ConcurrentTrainer"]
+__all__ = ["TRAINERS", "register_trainer", "build_trainer",
+           "ConcurrentTrainer", "BaselineTrainer", "SynchronizedTrainer",
+           "EVAL_STREAM_TAG"]
+
+TRAINERS: Dict[str, Callable[..., object]] = {}
+
+
+def register_trainer(mode: str):
+    """Decorator registering a trainer class for an execution mode."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+
+    def deco(factory):
+        TRAINERS[mode] = factory
+        return factory
+
+    return deco
+
+
+def build_trainer(spec: ExperimentSpec, device: str = "cuda"):
+    """The construction path from a spec to a runnable trainer on
+    ``device``: the spec is validated and the mode resolved through the
+    registry."""
+    spec.validate()
+    if spec.mode == "population":
+        raise NotImplementedError(
+            "mode 'population' is not ported to repro_torch yet (ROADMAP.md, "
+            "queue 1 item 9); run one seed with mode 'concurrent'")
+    try:
+        factory = TRAINERS[spec.mode]
+    except KeyError:
+        raise KeyError(f"unknown execution mode {spec.mode!r}; "
+                       f"registered: {sorted(TRAINERS)}") from None
+    return factory(spec, device=device)
 
 
 class _Components:
@@ -38,60 +95,56 @@ class _Components:
 
     def __init__(self, spec: ExperimentSpec):
         self.env = make_env(spec.env, **spec.env_params)
-        if spec.obs_mode != "pixels":
-            raise NotImplementedError(
-                "vector observations are not ported to repro_torch yet "
-                "(ROADMAP.md, queue 1 item 2)")
         if spec.exec.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {spec.exec.compute_dtype!r}: the port's DQN "
                 "path runs in float32 only")
-        self.obs = pixel_obs(spec.frame_size)
+        # the observation pipeline every sampler and eval path consumes
+        self.obs = (vector_obs(self.env) if spec.obs_mode == "vector"
+                    else pixel_obs(spec.frame_size))
         self.ncfg = spec.cnn_config(self.env.n_actions)
         self.dcfg = spec.dqn_config()
         ncfg = self.ncfg
+        # trailing noise key (NoisyNet; None = μ-only, e.g. greedy eval)
         self.qf = lambda p, o, k=None: q_forward(p, o, ncfg, noise_key=k)
         self.qlog = ((lambda p, o, k=None: q_logits(p, o, ncfg, noise_key=k))
                      if spec.variant.distributional else None)
-        if spec.algo.optimizer != "rmsprop":
-            raise NotImplementedError(
-                f"optimizer {spec.algo.optimizer!r} is not ported to "
-                "repro_torch yet (ROADMAP.md, queue 1 item 6); use "
-                "'rmsprop'")
-        self.opt = centered_rmsprop(spec.algo.learning_rate or 2.5e-4)
+        lr = spec.algo.learning_rate
+        if spec.algo.optimizer == "rmsprop":
+            self.opt = centered_rmsprop(lr or 2.5e-4)
+        else:
+            self.opt = adamw(lr or 1e-3, weight_decay=0.0)
         self.q_init = lambda key: q_init(ncfg, self.env.n_actions, key)
 
 
-class ConcurrentTrainer:
-    """The C-cycle on one ``TrainerCarry`` held on ``device``. The
+class _SingleReplicaTrainer:
+    """What every single-replica mode shares: the ε=0.05 evaluator, the
+    eval key, the leading replica axis on metrics, eval and steps. The
     constructor pins float32 and deterministic kernels
-    (``runtime.configure``)."""
+    (``runtime.configure``); subclasses set ``self._init`` (seed ->
+    carry) and ``self._cycle`` (carry -> (carry', metrics)) in
+    ``_build``."""
 
     replicas = 1
 
     def __init__(self, spec: ExperimentSpec, device: str = "cuda"):
         spec.validate()
-        if spec.mode != "concurrent":
-            raise ValueError(
-                f"ConcurrentTrainer runs mode 'concurrent', got {spec.mode!r}")
         self.spec = spec
         self.device = configure(device)
-        c = _Components(spec)
-        self._c = c
-        self._init_one = make_replica_init(c.env, c.q_init, c.qf, c.opt,
-                                           c.dcfg, c.obs, device=self.device)
-        self._cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
-                                            obs=c.obs, q_logits=c.qlog)
+        self._c = _Components(spec)
+        self._build(spec, self._c)
 
-    def init_carry(self) -> TrainerCarry:
-        return self._init_one(self.spec.seed)
+    def _build(self, spec: ExperimentSpec, c: _Components) -> None:
+        raise NotImplementedError
 
-    def cycle(self, carry: TrainerCarry
-              ) -> Tuple[TrainerCarry, Dict[str, torch.Tensor]]:
+    def init_carry(self):
+        return self._init(self.spec.seed)
+
+    def cycle(self, carry) -> Tuple[object, Dict[str, torch.Tensor]]:
         carry, m = self._cycle(carry)
         return carry, {k: v[None] for k, v in m.items()}
 
-    def eval(self, carry: TrainerCarry, key: torch.Tensor) -> torch.Tensor:
+    def eval(self, carry, key: torch.Tensor) -> torch.Tensor:
         """ε=0.05 greedy returns of the μ-only network, shape (1,)."""
         c, sched = self._c, self.spec.schedule
         with torch.no_grad():
@@ -106,5 +159,102 @@ class ConcurrentTrainer:
         return replica_key(EVAL_STREAM_TAG, i32(self.spec.seed),
                            i32(cycle_index))
 
-    def steps(self, carry: TrainerCarry) -> torch.Tensor:
+    def steps(self, carry) -> torch.Tensor:
         return carry.step[None]
+
+
+@register_trainer("concurrent")
+class ConcurrentTrainer(_SingleReplicaTrainer):
+    """The C-cycle on one ``TrainerCarry`` held on ``device``."""
+
+    def __init__(self, spec: ExperimentSpec, device: str = "cuda"):
+        if spec.mode != "concurrent":
+            raise ValueError(
+                f"ConcurrentTrainer runs mode 'concurrent', got {spec.mode!r}")
+        super().__init__(spec, device)
+
+    def _build(self, spec: ExperimentSpec, c: _Components) -> None:
+        self._init = make_replica_init(c.env, c.q_init, c.qf, c.opt,
+                                       c.dcfg, c.obs, device=self.device)
+        self._cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
+                                            obs=c.obs, q_logits=c.qlog)
+
+
+# Variant toggles that need the concurrent cycle's staging machinery
+# (PER priority staging, n-step aggregation on the staging buffer, C51
+# projection in the burst loss, per-cycle NoisyNet draws).
+_STAGING_TOGGLES = ("prioritized", "distributional", "noisy")
+
+
+class _SequentialTrainer(_SingleReplicaTrainer):
+    """One cycle = ``schedule.cycle_steps`` env steps of standard
+    sequential DQN (``core.baseline.make_baseline_chunk``)."""
+
+    def __init__(self, spec: ExperimentSpec, device: str = "cuda"):
+        bad = [t for t in _STAGING_TOGGLES if getattr(spec.variant, t)]
+        if spec.variant.n_step > 1:
+            bad.append(f"n_step={spec.variant.n_step}")
+        if bad:
+            raise ValueError(
+                f"mode {spec.mode!r} runs standard sequential DQN and "
+                f"supports only loss-level variants (double/dueling); "
+                f"variant {spec.variant.name!r} needs {', '.join(bad)} — "
+                "use mode='concurrent'")
+        F, W = spec.algo.train_period, spec.envs
+        if F % W != 0:
+            raise ValueError(
+                f"mode {spec.mode!r} updates every train_period env "
+                f"steps over W-batched rounds, so train_period must be "
+                f"a positive multiple of envs (got train_period={F}, "
+                f"envs={W}) — raise train_period, lower envs, or use "
+                "mode='concurrent' (any F)")
+        if spec.schedule.cycle_steps % F != 0:
+            raise ValueError(
+                f"mode {spec.mode!r} needs cycle_steps divisible by "
+                f"train_period (got {spec.schedule.cycle_steps} % {F})")
+        super().__init__(spec, device)
+
+    def _build(self, spec: ExperimentSpec, c: _Components) -> None:
+        pipe, dev = c.obs, self.device
+        self._cycle = make_baseline_chunk(
+            c.env, c.qf, c.opt, c.dcfg, obs=pipe,
+            chunk_steps=spec.schedule.cycle_steps)
+
+        def init(seed: int) -> BaselineCarry:
+            # split once: the network init and the sampler's episode
+            # streams must not draw the same bits
+            keys = rng.split(rng.PRNGKey(
+                torch.full((), int(seed), dtype=torch.int32, device=dev)))
+            params = c.q_init(keys[0])
+            replay = replay_init(c.dcfg.replay_capacity,
+                                 pipe.shape + (c.dcfg.frame_stack,),
+                                 obs_dtype=pipe.dtype, device=dev)
+            sampler = sampler_init(c.env, c.dcfg, keys[1], pipe)
+            replay, sampler = prepopulate(c.env, c.qf, c.dcfg, replay,
+                                          sampler, c.dcfg.prepopulate, pipe)
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            return BaselineCarry(params, params, c.opt.init(params), replay,
+                                 sampler, zero, zero.clone())
+
+        self._init = init
+
+
+@register_trainer("baseline")
+class BaselineTrainer(_SequentialTrainer):
+    """Standard DQN (Figure 1a): θ acts, updates block, 𝒟 writes are
+    immediate. The W streams are batched (the dataflow model); the
+    per-stream transaction cost is the host runner's."""
+
+
+@register_trainer("synchronized")
+class SynchronizedTrainer(_SequentialTrainer):
+    """Synchronized Execution without Concurrent Training: the
+    sequential update structure over W >= 2 explicitly batched streams
+    (one Q transaction per round, Figure 3b)."""
+
+    def __init__(self, spec: ExperimentSpec, device: str = "cuda"):
+        if spec.envs < 2:
+            raise ValueError(
+                "synchronized execution aggregates W >= 2 sampler "
+                f"streams (the paper marks W=1 as '—'); got envs={spec.envs}")
+        super().__init__(spec, device)

@@ -9,7 +9,9 @@ transformer, the stacked ``layers/b0_attn/*`` parameters and the
 (n_sb, B, Hkv, L, hd) caches, and the recurrent blocks' states, which
 are tuples of arrays (the mLSTM's (C, n, m), the sLSTM's (c, n, h, m)).
 Keys become (..., 2) int64 tensors of uint32 words; every other array
-keeps its dtype.
+keeps its dtype. Optimizer state crosses for both optimizers (centered
+RMSProp's moments, AdamW's moments and step), and both carries: the
+concurrent ``TrainerCarry`` and the sequential modes' ``BaselineCarry``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.baseline import BaselineCarry
 from repro_torch.core.concurrent import TrainerCarry
 from repro_torch.core.synchronized import SamplerState
 
@@ -44,24 +47,42 @@ def params_from_jax(params: Mapping[str, Any], device="cpu") -> Dict[str, torch.
     return _dict(params, device)
 
 
-def opt_state_from_jax(opt_state: Mapping[str, Mapping[str, Any]],
-                       device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Centered RMSProp state: the ``s`` and ``g`` moment dicts."""
-    return {k: _dict(v, device) for k, v in opt_state.items()}
+def opt_state_from_jax(opt_state: Mapping[str, Any], device="cpu") -> Dict:
+    """An optimizer's state: centered RMSProp's ``s`` and ``g`` moment
+    dicts, or AdamW's ``m`` and ``v`` dicts and its int32 ``step``."""
+    return {k: _dict(v, device) if isinstance(v, Mapping)
+            else tensor_from_jax(v, device) for k, v in opt_state.items()}
+
+
+def _sampler(s: Any, device) -> SamplerState:
+    return SamplerState(_dict(s.env_states, device),
+                        tensor_from_jax(s.stack, device),
+                        tensor_from_jax(s.key, device))
+
+
+def _i32(x: Any, device) -> torch.Tensor:
+    return tensor_from_jax(x, device).to(torch.int32)
 
 
 def carry_from_jax(carry: Any, device="cpu") -> TrainerCarry:
     """A reference ``TrainerCarry`` (params, opt_state, replay, sampler,
     step, seed) as the port's."""
-    s = carry.sampler
-    sampler = SamplerState(_dict(s.env_states, device),
-                           tensor_from_jax(s.stack, device),
-                           tensor_from_jax(s.key, device))
     return TrainerCarry(params_from_jax(carry.params, device),
                         opt_state_from_jax(carry.opt_state, device),
-                        _dict(carry.replay, device), sampler,
-                        tensor_from_jax(carry.step, device).to(torch.int32),
-                        tensor_from_jax(carry.seed, device).to(torch.int32))
+                        _dict(carry.replay, device),
+                        _sampler(carry.sampler, device),
+                        _i32(carry.step, device), _i32(carry.seed, device))
+
+
+def baseline_carry_from_jax(carry: Any, device="cpu") -> BaselineCarry:
+    """A reference ``BaselineCarry`` (params, target_params, opt_state,
+    replay, sampler, step, group) as the port's."""
+    return BaselineCarry(params_from_jax(carry.params, device),
+                         params_from_jax(carry.target_params, device),
+                         opt_state_from_jax(carry.opt_state, device),
+                         _dict(carry.replay, device),
+                         _sampler(carry.sampler, device),
+                         _i32(carry.step, device), _i32(carry.group, device))
 
 
 def tree_from_jax(tree: Any, device="cpu") -> Any:

@@ -4,9 +4,10 @@ Games render (S, S, C) float grids; ``to_frame84`` blends the channels
 to a grayscale intensity and nearest-neighbour-upscales it onto the
 84x84 uint8 canvas the Nature CNN consumes, ``to_frame10`` keeps the
 native size. Frames stack along a trailing axis, newest last. Every
-function here is batched over a leading stream axis. This slice ports
-the ``pixels`` pipeline; ``vector`` observations are later work
-(ROADMAP.md, queue 1 item 2).
+function here is batched over a leading stream axis. An
+:class:`ObsPipeline` names what one observation is: ``pixels`` (rendered
+uint8 frames, the paper's pipeline) or ``vector`` (the env's float32
+``observe`` state vector); the stack and step helpers work on either.
 """
 
 from __future__ import annotations
@@ -32,6 +33,13 @@ class ObsPipeline:
 
 def pixel_obs(frame_size: int) -> ObsPipeline:
     return ObsPipeline("pixels", (frame_size, frame_size), torch.uint8)
+
+
+def vector_obs(spec: EnvSpec) -> ObsPipeline:
+    if spec.observe is None:
+        raise ValueError(f"env {spec.name!r} has no observe(); "
+                         "vector observations unavailable")
+    return ObsPipeline("vector", (spec.obs_dim,), torch.float32)
 
 
 def as_obs(obs: Union[int, ObsPipeline]) -> ObsPipeline:
@@ -64,7 +72,8 @@ def to_frame10(grid: torch.Tensor) -> torch.Tensor:
 
 def init_obs_stack(batch: int, pipe: ObsPipeline, stack: int,
                    device=None) -> torch.Tensor:
-    """Zero observation stack: (B,) + pipe.shape + (K,)."""
+    """Zero observation stack: (B,) + pipe.shape + (K,) in pipe.dtype
+    (uint8 frames or float32 state vectors)."""
     return torch.zeros((batch,) + pipe.shape + (stack,), dtype=pipe.dtype,
                        device=device)
 
@@ -87,11 +96,9 @@ def render_batch(spec: EnvSpec, states, size: int = 84) -> torch.Tensor:
 
 
 def obs_batch(pipe: ObsPipeline, spec: EnvSpec, states) -> torch.Tensor:
-    """One observation per env state: (W,) + pipe.shape."""
-    if pipe.mode != "pixels":
-        raise NotImplementedError(
-            "vector observations are not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 2)")
+    """One observation per env state: (W,) + pipe.shape in pipe.dtype."""
+    if pipe.mode == "vector":
+        return spec.observe(states)
     if pipe.shape[0] == 84 and spec.size != 10:
         raise ValueError(
             f"84x84 frames assume a 10x10 grid (8x upscale + border); env "

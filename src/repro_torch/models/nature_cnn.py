@@ -6,7 +6,10 @@ kernels HWIO, linear weights (in, out). Frames come in as
 (B, H, W, C) uint8 and are scaled to [0, 1] on the device. The convs run
 in NCHW through ``torch.nn.functional.conv2d`` on kernels permuted to
 OIHW; the last conv's output is permuted back to NHWC before the
-flatten, so ``fc_w``'s rows keep the reference's order.
+flatten, so ``fc_w``'s rows keep the reference's order. A config with
+``vector_dim > 0`` (the ``mlp`` and ``mlp_tiny`` presets) takes
+(B, D, K) float32 state-vector stacks instead: no convs and no /255,
+the stack flattened straight into ``fc_w``.
 
 Head families: dueling (V + A - mean A), C51 (``num_atoms > 1``:
 ``q_logits`` gives (B, A, K) logits, ``q_forward`` their expectation over
@@ -46,21 +49,21 @@ def _linear_spec(spec: Dict[str, Any], name: str, d_in: int, d_out: int,
 
 
 def q_param_spec(cfg: NatureCNNConfig, n_actions: int) -> Dict[str, Any]:
-    if cfg.vector_dim:
-        raise NotImplementedError(
-            "vector observations are not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1 item 2)")
     spec: Dict[str, Any] = {}
-    in_ch = cfg.frame_stack
-    size = cfg.frame_size
-    for i, (out_ch, k, s) in enumerate(cfg.convs):
-        spec[f"conv{i}_w"] = P.Leaf((k, k, in_ch, out_ch),
-                                    (None, None, None, "mlp"),
-                                    fan_in=k * k * in_ch)
-        spec[f"conv{i}_b"] = P.Leaf((out_ch,), ("mlp",), init="zeros")
-        size = (size - k) // s + 1
-        in_ch = out_ch
-    flat = size * size * in_ch
+    if cfg.vector_dim:
+        # vector mode: an fc-only trunk on the stacked state vectors
+        flat = cfg.vector_dim * cfg.frame_stack
+    else:
+        in_ch = cfg.frame_stack
+        size = cfg.frame_size
+        for i, (out_ch, k, s) in enumerate(cfg.convs):
+            spec[f"conv{i}_w"] = P.Leaf((k, k, in_ch, out_ch),
+                                        (None, None, None, "mlp"),
+                                        fan_in=k * k * in_ch)
+            spec[f"conv{i}_b"] = P.Leaf((out_ch,), ("mlp",), init="zeros")
+            size = (size - k) // s + 1
+            in_ch = out_ch
+        flat = size * size * in_ch
     K = cfg.num_atoms
     spec["fc_w"] = P.Leaf((flat, cfg.hidden), (None, "mlp"), fan_in=flat)
     spec["fc_b"] = P.Leaf((cfg.hidden,), ("mlp",), init="zeros")
@@ -94,13 +97,18 @@ def _affine(params: Params, name: str, x: torch.Tensor, cfg: NatureCNNConfig,
 
 def _trunk(params: Params, frames: torch.Tensor, cfg: NatureCNNConfig,
            noise_key: Optional[torch.Tensor]) -> torch.Tensor:
-    scale = torch.full((), 255.0, dtype=torch.float32, device=frames.device)
-    x = (frames.to(torch.float32) / scale).permute(0, 3, 1, 2)
-    for i, (_, k, s) in enumerate(cfg.convs):
-        w = params[f"conv{i}_w"].permute(3, 2, 0, 1)           # HWIO -> OIHW
-        x = F.conv2d(x, w, stride=s)
-        x = torch.relu(x + params[f"conv{i}_b"][:, None, None])
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)         # NHWC flatten
+    if cfg.vector_dim:
+        # (B, D, K) float32 state vectors, already in [0, 1]: no /255
+        x = frames.to(torch.float32).reshape(frames.shape[0], -1)
+    else:
+        scale = torch.full((), 255.0, dtype=torch.float32,
+                           device=frames.device)
+        x = (frames.to(torch.float32) / scale).permute(0, 3, 1, 2)
+        for i, (_, k, s) in enumerate(cfg.convs):
+            w = params[f"conv{i}_w"].permute(3, 2, 0, 1)       # HWIO -> OIHW
+            x = F.conv2d(x, w, stride=s)
+            x = torch.relu(x + params[f"conv{i}_b"][:, None, None])
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)     # NHWC flatten
     kfc = rng.fold_in(noise_key, 0) if noise_key is not None else None
     return torch.relu(_affine(params, "fc", x, cfg, kfc))
 

@@ -223,7 +223,7 @@ def test_launcher_runs_on_cpu_only_when_asked(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--mode", "population"), "item 9"), (("--mode", "baseline"), "item 10"),
+    (("--mode", "population"), "item 9"), (("--seeds", "4"), "item 9"),
     (("--sweep", "x.json"), "item 9"), (("--ckpt-dir", "ck"), "item 8"),
     (("--trace", "t.jsonl"), "item 12")])
 def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
@@ -233,6 +233,25 @@ def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
     assert rl_train.main(["--spec", str(path), "--device", "cpu",
                           *extra]) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name,mode,variant", [
+    ("baseline_catch", "baseline", "double"),
+    ("synchronized_catch", "synchronized", "dueling")])
+def test_launcher_runs_sequential_modes_on_cpu(capsys, name, mode, variant):
+    """The committed sequential specs through the launcher on the CPU
+    (one cycle cut to 64 steps), and the same mode named by --mode."""
+    from repro_torch.launch import rl_train
+    torch.set_num_threads(1)
+    spec = ROOT / "examples" / "specs" / f"{name}.json"
+    for extra in ((), ("--mode", mode, "--obs-mode", "vector")):
+        assert rl_train.main(["--spec", str(spec), "--device", "cpu",
+                              "--cycles", "1", "--cycle-steps", "64",
+                              "--prepopulate", "64", *extra]) == 0
+        out = capsys.readouterr().out
+        obs = "vector" if extra else "pixels"
+        assert f"[{mode}/{variant}] catch ({obs}) init_carry" in out, out
+        assert f"[{mode}/{variant}] cycle    1 steps      64" in out, out
 
 
 def test_committed_specs_parse(tmp_path):
