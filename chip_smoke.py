@@ -61,8 +61,34 @@ Phases, each printing its own lines:
    with the reference's transaction invariants (synchronized inference
    = steps/W + 1, standard = steps + 1, updates = steps/F + 1), and what
    one update and one inference cost, on the host and on the device.
-   Phases 12-14 run last, and the card memory still allocated after them
-   is printed.
+   Phases 12-14 run after the serve phases, and the card memory still
+   allocated after them is printed;
+15. resume on the card: rainbow_fleet.json for one replica (rainbow on
+   catch, pixels) and baseline_catch.json, cycles cut to RESUME_STEPS
+   steps and prepopulate to RESUME_PREPOPULATE: 2 cycles checkpointed
+   after each, step 2 deleted, step 1 restored through restore_latest
+   and cycle 2 run again, bitwise equal to the uninterrupted cycle 2
+   leaf for leaf, with both DQN kernels and the tree build launched in
+   the resumed rainbow cycle; the same checkpoint restored on the CPU
+   runs cycle 2 as the card does (integers exact, floats to 1e-4);
+16. the launcher end to end: rl_train in processes of its own with
+   --ckpt-dir and --metrics-jsonl for 2 cycles, then --cycles 3
+   --resume (the resume line, one metrics row per cycle), then a changed
+   spec refused with exit 2 and its field diff (in this process: the
+   refusal comes before any init);
+17. policy serving at full width: a checkpoint of dqn_nature84.json with
+   rainbow (pong 84x84x4, a 16384-slot replay; one short cycle), its
+   save and restore timed; SERVE_CLIENTS simulated clients x SERVE_TICKS
+   ticks under greedy, egreedy and noisy, and the catch checkpoint of
+   phase 16 at 256 clients (and through launch/serve_policy.py --smoke),
+   with actions/s, p50 and p99 latency and microbatches per tick, every
+   client answered on every tick, each tick split into the clients'
+   and the server's parts, and one flush and one client step profiled
+   (egreedy, noisy); served actions equal a direct
+   policy_step on the same stacks and keys bitwise, and do not change
+   when the same requests arrive in another bucket and company.
+   Phases 15-17 print their wall time; each keeps its checkpoints in a
+   temporary directory it removes.
 
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
@@ -98,12 +124,15 @@ beside it, the script fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -149,7 +178,11 @@ PROFILED_STEPS = 32
 # the sequential modes' committed specs, and the env steps of each of
 # Table 1's 14 cells
 SEQUENTIAL_SPECS = ("baseline_catch", "synchronized_catch")
-TABLE1_STEPS = 2000
+TABLE1_STEPS = 1000
+# the checkpoint phases' cut (C and prepopulate), and the serving load:
+# simulated clients on the pong checkpoint and ticks per policy
+RESUME_STEPS, RESUME_PREPOPULATE = 32, 256
+SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 100, 10
 
 
 class SmokeFailure(RuntimeError):
@@ -532,16 +565,23 @@ def phase_against_cpu():
     _card_vs_cpu(spec, "pong 10x10, tiny net, rainbow")
 
 
+def _bitwise(a, b, label: str) -> int:
+    """Check two carries equal leaf for leaf, dtypes included; returns
+    the number of tensors."""
+    pb = dict(_paths(b))
+    n = 0
+    for path, t in _paths(a):
+        check(t.dtype == pb[path].dtype and torch.equal(t, pb[path]),
+              f"{label}carry{path} differs")
+        n += 1
+    return n
+
+
 def phase_determinism(trainer, carry, label: str = ""):
     a, _ = trainer.cycle(_clone(carry))
     b, _ = trainer.cycle(_clone(carry))
     torch.cuda.synchronize()
-    pb = dict(_paths(b))
-    n = 0
-    for path, t in _paths(a):
-        check(torch.equal(t, pb[path]),
-              f"{label}carry{path} differs between runs")
-        n += 1
+    n = _bitwise(a, b, f"{label}between runs: ")
     say(f"{label}determinism: two cycles from one carry bitwise equal "
         f"({n} tensors)")
 
@@ -559,11 +599,19 @@ def _card_vs_cpu(spec, label: str) -> None:
     runs = {}
     for device in ("cpu", "cuda"):
         trainer = build_trainer(spec, device=device)
-        carry, _ = trainer.cycle(trainer.init_carry())
-        runs[device] = dict(_paths(carry, "carry"))
+        runs[device], _ = trainer.cycle(trainer.init_carry())
+    worst = _agree(runs["cpu"], runs["cuda"], label)
+    say(f"agreement with the CPU path ({label}, 1 cycle): integer state "
+        f"equal, floats within 1e-4 (max {worst:.2e})")
+
+
+def _agree(on_cpu, on_card, label: str) -> float:
+    """Check a carry from the card against one from the CPU: integer
+    state equal, floats within 1e-4. Returns the largest float error."""
+    card = dict(_paths(on_card, "carry"))
     worst = 0.0
-    for path, a in runs["cpu"].items():
-        b = runs["cuda"][path].cpu()
+    for path, a in _paths(on_cpu, "carry"):
+        b = card[path].cpu()
         if a.dtype.is_floating_point:
             err = float((a - b).abs().max()) if a.numel() else 0.0
             worst = max(worst, err)
@@ -571,8 +619,7 @@ def _card_vs_cpu(spec, label: str) -> None:
                   f"{label} {path}: card and CPU differ by {err}")
         else:
             check(torch.equal(a, b), f"{label} {path}: card and CPU differ")
-    say(f"agreement with the CPU path ({label}, 1 cycle): integer state "
-        f"equal, floats within 1e-4 (max {worst:.2e})")
+    return worst
 
 
 def phase_sequential(dev):
@@ -758,6 +805,297 @@ def _transaction_costs(dev, runs: int = 50) -> None:
         f"action): {act1_s * 1e3:.3f} ms at batch 1, {act8_s * 1e3:.3f} ms "
         f"at batch 8; device forward {infer1_ms:.3f} ms at batch 1, "
         f"{infer8_ms:.3f} ms at batch 8")
+
+
+def _fleet_replica(**schedule):
+    """rainbow_fleet.json for one replica (mode concurrent, seeds 1),
+    its schedule cut by ``schedule``."""
+    spec = dataclasses.replace(_spec_file("rainbow_fleet"),
+                               mode="concurrent", seeds=1)
+    return dataclasses.replace(spec, schedule=dataclasses.replace(
+        spec.schedule, **schedule))
+
+
+def _resume_round_trip(spec, label: str, dev, against_cpu: bool = False):
+    """Two cycles with a checkpoint after each; step 2 deleted, step 1
+    restored through restore_latest and cycle 2 run again: bitwise equal
+    to the uninterrupted cycle 2, leaf for leaf. Returns the launches of
+    the resumed cycle."""
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+    trainer = build_trainer(spec, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        carry = trainer.init_carry()
+        for i in range(2):
+            carry, _ = trainer.cycle(carry)
+            save_checkpoint(d, i + 1, carry)
+        os.unlink(os.path.join(d, "step_00000002.npz"))
+        template = trainer.init_template()
+        step, restored, skipped = restore_latest(d, template, device=dev)
+        check(step == 1 and not skipped,
+              f"{label}: restored step {step}, skipped {skipped}")
+        cpu = restore_latest(d, template)[1] if against_cpu else None
+    reset_launches()
+    resumed, _ = trainer.cycle(restored)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n = _bitwise(resumed, carry, f"{label} resumed ")
+    say(f"resume {label}: cycle 2 from the restored cycle-1 checkpoint "
+        f"bitwise equal to the uninterrupted cycle 2 ({n} tensors); "
+        f"launches in the resumed cycle "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if cpu is not None:
+        on_cpu, _ = build_trainer(spec, device="cpu").cycle(cpu)
+        worst = _agree(on_cpu, resumed, f"resume {label}")
+        say(f"resume {label}: the checkpoint restored on the CPU runs cycle "
+            f"2 as the card does: integer state equal, floats within 1e-4 "
+            f"(max {worst:.2e})")
+    return launches
+
+
+def phase_resume(dev):
+    """Checkpoints on the card: rainbow_fleet.json for one replica
+    (rainbow on catch, pixels) and baseline_catch.json, each cut to
+    RESUME_STEPS-step cycles, resumed bitwise; both DQN kernels and the
+    tree build launch in the resumed rainbow cycle."""
+    from repro_torch.api.spec import ScheduleSpec
+    cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
+    say(f"resume: cycles cut to C={RESUME_STEPS} and prepopulate to "
+        f"{RESUME_PREPOPULATE} (the specs: C=256, prepopulate 2048)")
+    launches = _resume_round_trip(_fleet_replica(**cut), "rainbow_fleet "
+                                  "replica (catch, rainbow)", dev,
+                                  against_cpu=True)
+    for name in ("segment_tree", "categorical_projection", "tree_build"):
+        check(launches[name] > 0, f"{name} never launched in the resumed "
+              "rainbow cycle")
+    base = _spec_file("baseline_catch")
+    _resume_round_trip(dataclasses.replace(base, schedule=ScheduleSpec(
+        **{**dataclasses.asdict(base.schedule), **cut})),
+        "baseline_catch (double)", dev)
+
+
+def _rl_train(*args, expect: int = 0) -> str:
+    """``python -m repro_torch.launch.rl_train`` with ``args`` in a process
+    of its own; returns its output (stdout, then stderr)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.rl_train",
+                          *args], capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=300)
+    out = run.stdout + run.stderr
+    check(run.returncode == expect,
+          f"rl_train {' '.join(args)} exited {run.returncode}, expected "
+          f"{expect}:\n{out[-3000:]}")
+    say(f"launcher rl_train {' '.join(a for a in args if '/' not in a)}: "
+        f"exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_launcher(d: str) -> str:
+    """The launcher end to end on the card, in processes of its own:
+    rainbow_fleet.json for one replica (cut as in phase_resume, its ε
+    horizon pinned to the full run's so that --cycles may grow) with
+    --ckpt-dir and --metrics-jsonl for 2 cycles, then --cycles 3
+    --resume; then a changed spec refused. Returns the checkpoint dir."""
+    spec = _fleet_replica(cycle_steps=RESUME_STEPS,
+                          prepopulate=RESUME_PREPOPULATE)
+    horizon = 60 * 256 // 2
+    spec = dataclasses.replace(spec, algo=dataclasses.replace(
+        spec.algo, eps_anneal_steps=horizon))
+    path = os.path.join(d, "spec.json")
+    with open(path, "w") as f:
+        f.write(spec.to_json())
+    ck = os.path.join(d, "run")
+    jsonl = os.path.join(ck, "m.jsonl")
+    common = ["--spec", path, "--ckpt-dir", ck, "--metrics-jsonl", jsonl]
+    _rl_train(*common, "--cycles", "2")
+    out = _rl_train(*common, "--cycles", "3", "--resume")
+    check(f"resumed {ck} at cycle 2" in out, f"no resume line in:\n{out}")
+    with open(jsonl) as f:
+        cycles = [json.loads(ln)["cycle"] for ln in f]
+    check(cycles == [1, 2, 3], f"metrics rows for cycles {cycles}")
+    # the refusal comes before any init: in this process
+    from repro_torch.launch import rl_train
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = rl_train.main([*common, "--cycles", "4", "--resume", "--envs",
+                            "4"])
+    check(rc == 2 and "envs: checkpoint=8, requested=4" in err.getvalue(),
+          f"rl_train with a changed spec exited {rc}:\n{err.getvalue()}")
+    say(f"launcher: resumed at cycle 2, metrics rows for cycles {cycles}, "
+        "a changed spec refused with its field diff")
+    return ck
+
+
+def _every_client_served(server, n: int):
+    """Wrap ``server.flush`` so that every tick must answer all n
+    clients."""
+    flush = server.flush
+
+    def checked(keys=None):
+        out = flush(keys)
+        check(sorted(out) == list(range(n)),
+              f"a tick answered {len(out)} of {n} clients")
+        return out
+
+    server.flush = checked
+
+
+def _serve_load(loaded, policy: str, clients: int, label: str,
+                profile: bool = False) -> dict:
+    from repro_torch.api.policy_client import SimulatedClients, drive
+    from repro_torch.api.serve import ServeSpec, make_server
+    server = make_server(loaded, ServeSpec(policy=policy))
+    t0 = time.perf_counter()
+    n = server.warm_start(clients)
+    warm_s = time.perf_counter() - t0
+    fleet = SimulatedClients(loaded.spec, clients, seed=1, device="cuda")
+    _every_client_served(server, clients)
+    stats = drive(server, fleet, SERVE_TICKS)
+    check(stats["actions"] == clients * SERVE_TICKS,
+          f"{label}: {stats['actions']} actions served")
+    say(f"serve {label} {policy}: {clients} clients x {SERVE_TICKS} ticks, "
+        f"{stats['actions_per_s']:.0f} actions/s, p50 "
+        f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms, "
+        f"{stats['microbatches_per_tick']:.2f} microbatches/tick "
+        f"(warm start {n} buckets, {warm_s:.2f} s); "
+        f"{stats['episodes']} episodes finished")
+    # where a tick goes: each part ends in a copy to the host, so the
+    # host clock covers its device work
+    parts = {"observe": 0.0, "submit": 0.0, "flush": 0.0, "step": 0.0}
+    for _ in range(BREAKDOWN_TICKS):
+        t0 = time.perf_counter()
+        obs = fleet.observations()
+        t1 = time.perf_counter()
+        server.submit_many(fleet.ids, obs, fleet.first)
+        t2 = time.perf_counter()
+        acts = server.flush()
+        t3 = time.perf_counter()
+        fleet.step([acts[i] for i in fleet.ids])
+        t4 = time.perf_counter()
+        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[name] += dt * 1e3 / BREAKDOWN_TICKS
+    say(f"serve {label} {policy} per tick (mean of {BREAKDOWN_TICKS} more): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + " (observe and step: the simulated clients; submit and flush: "
+        "the server)")
+    if profile:
+        server.submit_many(fleet.ids, fleet.observations(), fleet.first)
+        acts = {}
+        profile_classes(f"serve {label} {policy} flush",
+                        lambda: acts.update(server.flush()))
+        if policy == "egreedy":
+            profile_classes(f"serve {label} clients step",
+                            lambda: fleet.step([acts[i] for i in fleet.ids]))
+    return stats
+
+
+def _serve_checks(loaded) -> None:
+    """Served actions equal a direct policy_step on the same stacks and
+    keys, bitwise, at one bucket; and a fixed set of streams gets the same
+    actions whatever bucket and company its requests arrive in."""
+    from repro_torch import rng
+    from repro_torch.api.serve import ServeSpec, make_server
+    from repro_torch.core.policy import policy_step
+    from repro_torch.envs.preprocess import init_obs_stack, push_frame
+    gen = torch.Generator().manual_seed(5)
+    n = 64
+    frames = torch.randint(0, 256, (n,) + loaded.pipe.shape, generator=gen,
+                           dtype=torch.uint8).numpy()
+    for policy in ("egreedy", "noisy"):
+        serve = ServeSpec(policy=policy, seed=3)
+        server = make_server(loaded, serve)
+        server.submit_many(range(n), frames, [True] * n)
+        got = server.flush()
+        stacks = push_frame(init_obs_stack(n, loaded.pipe,
+                                           loaded.frame_stack, "cuda"),
+                            torch.from_numpy(frames).cuda())
+        base = rng.PRNGKey(serve.seed, device="cuda")
+        ids = torch.arange(n, device="cuda")
+        keys = rng.fold_in(rng.fold_in(base, ids), torch.zeros_like(ids))
+        noise = rng.fold_in(rng.fold_in(base, 7), 0) \
+            if policy == "noisy" else None
+        eps = serve.eps if policy == "egreedy" else 0.0
+        with torch.no_grad():
+            want = policy_step(loaded.q_forward, loaded.params, stacks,
+                               eps, keys, noise).cpu().tolist()
+        check([got[i] for i in range(n)] == want,
+              f"serve {policy}: served actions differ from policy_step")
+        # the same 64 requests inside 200, shuffled, in buckets of up to
+        # 100 (64 and 100 rows) against the 64-row bucket above
+        other = make_server(loaded, ServeSpec(policy=policy, seed=3,
+                                              max_batch=100))
+        order = torch.randperm(200, generator=gen).tolist()
+        extra = torch.randint(0, 256, (200,) + loaded.pipe.shape,
+                              generator=gen, dtype=torch.uint8).numpy()
+        for i in order:
+            other.submit(i if i < n else 1000 + i,
+                         frames[i] if i < n else extra[i], first=True)
+        mixed = other.flush()
+        flipped = sum(mixed[i] != got[i] for i in range(n))
+        check(flipped == 0, f"serve {policy}: {flipped} of {n} actions "
+              "changed with the bucket and the batch's composition")
+    say(f"serve checks: served actions equal policy_step on the same stacks "
+        f"and keys at bucket {n} (egreedy, noisy), bitwise; the same {n} "
+        "requests shuffled among 200 in buckets of 100 give the same actions")
+
+
+def phase_policy_serving(dev, catch_dir: str):
+    """Serving on the card at full width: a checkpoint of dqn_nature84.json
+    with rainbow (pong 84x84x4, the Nature CNN, a 16384-slot replay; init
+    with a short prepopulate and one cycle cut short), save and restore
+    timed; then 1024 simulated clients x SERVE_TICKS ticks under greedy,
+    egreedy and noisy, and the catch checkpoint at 256 clients, through
+    the serve_policy launcher as well."""
+    from repro_torch.api.serve import load_policy
+    from repro_torch.api.spec import save_run_spec
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.checkpoint import restore_latest, save_checkpoint
+    from repro_torch.configs.dqn_nature import get_variant
+    from repro_torch.launch import serve_policy
+    base = _spec_file("dqn_nature84")
+    spec = dataclasses.replace(
+        base, variant=get_variant("rainbow"),
+        schedule=dataclasses.replace(base.schedule, cycle_steps=RESUME_STEPS,
+                                     prepopulate=RESUME_PREPOPULATE))
+    trainer = build_trainer(spec, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        carry, _ = trainer.cycle(trainer.init_carry())
+        torch.cuda.synchronize()
+        save_run_spec(d, spec)
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 1, carry)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        del carry
+        t0 = time.perf_counter()
+        restored = restore_latest(d, trainer.init_template(), device=dev)[1]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(tuple(restored.replay["obs"].shape) == (16384, 84, 84, 4),
+              "restored replay is not (16384, 84, 84, 4)")
+        del restored, trainer
+        say(f"checkpoint at 84x84x4 (dqn_nature84, rainbow, C cut to "
+            f"{RESUME_STEPS}): {size / 1e6:.1f} MB, save {save_s:.2f} s, "
+            f"restore to the card {restore_s:.2f} s")
+        t0 = time.perf_counter()
+        loaded = load_policy(d, device="cuda")
+        say(f"serve load_policy (spec.json + the newest checkpoint, "
+            f"params to the card): {time.perf_counter() - t0:.2f} s")
+    for policy in ("greedy", "egreedy", "noisy"):
+        _serve_load(loaded, policy, SERVE_CLIENTS, "pong 84x84x4",
+                    profile=policy != "greedy")
+    _serve_checks(loaded)
+    catch = load_policy(catch_dir, device="cuda")
+    _serve_load(catch, "egreedy", 256, "catch (rainbow_fleet replica)")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = serve_policy.main(["--ckpt-dir", catch_dir, "--clients", "256",
+                                "--ticks", "10", "--warm-start", "--smoke"])
+    for line in text.getvalue().splitlines():
+        say(f"serve_policy: {line}")
+    check(rc == 0 and "SERVE OK" in text.getvalue(),
+          f"serve_policy --smoke exited {rc}")
 
 
 def kernel_table():
@@ -1645,6 +1983,12 @@ def main() -> int:
         f"{held / 1e9:.3f} GB before, {after / 1e9:.3f} GB after, "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB with cuBLAS's "
         "per-stream workspaces cleared")
+    t0 = time.perf_counter()
+    phase_resume(dev)
+    with tempfile.TemporaryDirectory() as d:
+        phase_policy_serving(dev, phase_launcher(d))
+    say(f"checkpoint and serving phases (resume, launcher, serving): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

@@ -1,21 +1,33 @@
-"""`ExperimentSpec`, one declarative run description: the port of the
-parsing, validation and config derivation of ``repro.api.spec``. The JSON
+"""`ExperimentSpec`, one declarative run description: the port of
+``repro.api.spec`` (parsing, validation, config derivation and run-spec
+storage; sweeps stay with ROADMAP.md queue 1 item 9). The JSON
 schema is the reference's, so every committed spec file parses
-unchanged. Spec-compatibility diffs, run-spec storage and sweeps are
-later work (ROADMAP.md, queue 1 item 8)."""
+unchanged. The run spec is stored beside a run's checkpoints
+(``save_run_spec``, canonical JSON byte for byte as the reference writes
+it), and ``--resume`` is refused with a field-level diff when the
+requested spec no longer describes the stored run
+(``check_resume_compat``)."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional
+import os
+import tempfile
+from typing import Any, Dict, List, Optional
 
 from repro_torch.config import DQNConfig, ExecConfig, VariantConfig
 
 __all__ = ["MODES", "ScheduleSpec", "AlgoSpec", "CheckpointSpec",
-           "MetricsSpec", "ExperimentSpec"]
+           "MetricsSpec", "ExperimentSpec", "SpecCompatError",
+           "spec_compat_diff", "check_resume_compat", "save_run_spec",
+           "load_run_spec", "RUN_SPEC_FILENAME"]
 
 MODES = ("baseline", "synchronized", "concurrent", "population")
+
+# written beside the checkpoints, so --resume can check that the
+# requested spec still describes the run that produced the carry
+RUN_SPEC_FILENAME = "spec.json"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,3 +239,121 @@ def _build_dataclass(dc_type, data: Dict[str, Any], path: str):
         return dc_type(**kwargs)
     except TypeError as e:
         raise ValueError(f"invalid spec at {path or '<root>'}: {e}") from None
+
+
+# ---------------------------------------------------------------------------
+# Resume compatibility: the spec is stored beside the checkpoints, and a
+# mismatched --resume fails with a field-level diff instead of a shape
+# error deep inside the checkpoint restore.
+# ---------------------------------------------------------------------------
+
+class SpecCompatError(ValueError):
+    """A resume request's spec does not describe the run that produced
+    the stored checkpoints."""
+
+
+# Fields that may differ between the stored and the requested spec
+# without invalidating the carry: output paths, and schedule knobs that
+# only extend or re-time the run.
+_COMPAT_EXEMPT = {
+    "checkpoint": None,                     # whole section
+    "metrics": None,                        # whole section
+    "schedule": {"cycles", "eval_every", "eval_episodes"},
+}
+
+
+def _compat_view(spec: ExperimentSpec) -> Dict[str, Any]:
+    d = spec.to_dict()
+    # materialise derived fields BEFORE dropping the exempt schedule
+    # knobs: eps_anneal_steps=0 derives from cycles, so extending such a
+    # run would change its ε schedule; the materialised value shows up
+    # as an algo.eps_anneal_steps diff (pin it to make a run extendable)
+    if d["algo"]["eps_anneal_steps"] == 0:
+        d["algo"]["eps_anneal_steps"] = max(
+            d["schedule"]["cycles"] * d["schedule"]["cycle_steps"] // 2, 1)
+    for key, sub in _COMPAT_EXEMPT.items():
+        if sub is None:
+            d.pop(key, None)
+        else:
+            d[key] = {k: v for k, v in d[key].items() if k not in sub}
+    return d
+
+
+def spec_compat_diff(stored: ExperimentSpec,
+                     requested: ExperimentSpec) -> List[str]:
+    """Field-level differences that make ``requested`` incompatible with
+    the run ``stored`` describes; empty when compatible."""
+    diffs: List[str] = []
+
+    def walk(a: Any, b: Any, path: str):
+        if isinstance(a, dict) and isinstance(b, dict):
+            for k in sorted(set(a) | set(b)):
+                walk(a.get(k), b.get(k), f"{path}.{k}" if path else k)
+            return
+        if a != b:
+            diffs.append(f"{path}: checkpoint={a!r}, requested={b!r}")
+
+    walk(_compat_view(stored), _compat_view(requested), "")
+    return diffs
+
+
+def check_resume_compat(stored: ExperimentSpec,
+                        requested: ExperimentSpec) -> None:
+    """Raise :class:`SpecCompatError`, with the field-level diff, when
+    ``requested`` cannot resume ``stored``'s carry."""
+    diffs = spec_compat_diff(stored, requested)
+    if diffs:
+        raise SpecCompatError(
+            "resume spec does not match the checkpointed run "
+            f"({len(diffs)} field(s) differ):\n  " + "\n  ".join(diffs)
+            + "\n(the stored spec lives in the checkpoint dir as "
+            f"{RUN_SPEC_FILENAME}; pass a matching --spec/flags, or "
+            "point --ckpt-dir at a fresh directory)")
+
+
+def save_run_spec(ckpt_dir: str, spec: ExperimentSpec) -> str:
+    """Write the resolved spec beside the checkpoints (canonical JSON).
+    A stored compatible spec is left untouched, so a resumed run keeps
+    the original file. A stored *incompatible* spec with checkpoints
+    beside it is never overwritten: a later --resume would restore the
+    old run's carry under the new run's description."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, RUN_SPEC_FILENAME)
+    if os.path.exists(path):
+        stored = load_run_spec(ckpt_dir)
+        if stored is not None and not spec_compat_diff(stored, spec):
+            return path
+        has_ckpts = any(f.startswith("step_") and f.endswith(".npz")
+                        for f in os.listdir(ckpt_dir))
+        if stored is not None and has_ckpts:
+            raise SpecCompatError(
+                f"{ckpt_dir} already holds checkpoints from a run with a "
+                "different spec:\n  "
+                + "\n  ".join(spec_compat_diff(stored, spec))
+                + "\npoint --ckpt-dir at a fresh directory (or delete the "
+                "old run's step_*.npz + spec.json to reuse this one)")
+    # atomic (tmp + rename), like the checkpoints: a run killed mid-write
+    # must not leave a truncated spec.json
+    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        f.write(spec.to_json())
+    os.replace(tmp, path)
+    return path
+
+
+def load_run_spec(ckpt_dir: str) -> Optional[ExperimentSpec]:
+    """The spec stored beside the checkpoints, or None when there is
+    none. An unreadable or corrupt file raises :class:`SpecCompatError`
+    naming the path."""
+    path = os.path.join(ckpt_dir, RUN_SPEC_FILENAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        text = f.read()
+    try:
+        return ExperimentSpec.from_json(text)
+    except ValueError as e:
+        raise SpecCompatError(
+            f"stored run spec {path} is unreadable ({e}); delete it (and "
+            "the step_*.npz checkpoints, if the run is dead) or restore "
+            "it from the original --print-spec output") from None

@@ -98,7 +98,7 @@ class _Components:
         if spec.exec.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {spec.exec.compute_dtype!r}: the port's DQN "
-                "path runs in float32 only")
+                "path runs in float32 only (ROADMAP.md, queue 1 item 7)")
         # the observation pipeline every sampler and eval path consumes
         self.obs = (vector_obs(self.env) if spec.obs_mode == "vector"
                     else pixel_obs(spec.frame_size))
@@ -119,11 +119,11 @@ class _Components:
 
 class _SingleReplicaTrainer:
     """What every single-replica mode shares: the ε=0.05 evaluator, the
-    eval key, the leading replica axis on metrics, eval and steps. The
-    constructor pins float32 and deterministic kernels
-    (``runtime.configure``); subclasses set ``self._init`` (seed ->
-    carry) and ``self._cycle`` (carry -> (carry', metrics)) in
-    ``_build``."""
+    eval key, the leading replica axis on metrics, eval and steps, and
+    the restore template. The constructor pins float32 and deterministic
+    kernels (``runtime.configure``); subclasses set ``self._init``
+    (``(seed, device=..., fill=True)`` -> carry) and ``self._cycle``
+    (carry -> (carry', metrics)) in ``_build``."""
 
     replicas = 1
 
@@ -139,6 +139,12 @@ class _SingleReplicaTrainer:
 
     def init_carry(self):
         return self._init(self.spec.seed)
+
+    def init_template(self):
+        """The carry's structure, shapes and dtypes as meta tensors, built
+        without data and without prepopulating 𝒟: what
+        ``checkpoint.restore_latest`` restores into."""
+        return self._init(self.spec.seed, device="meta", fill=False)
 
     def cycle(self, carry) -> Tuple[object, Dict[str, torch.Tensor]]:
         carry, m = self._cycle(carry)
@@ -220,19 +226,21 @@ class _SequentialTrainer(_SingleReplicaTrainer):
             c.env, c.qf, c.opt, c.dcfg, obs=pipe,
             chunk_steps=spec.schedule.cycle_steps)
 
-        def init(seed: int) -> BaselineCarry:
+        def init(seed: int, device=dev, fill: bool = True) -> BaselineCarry:
             # split once: the network init and the sampler's episode
             # streams must not draw the same bits
             keys = rng.split(rng.PRNGKey(
-                torch.full((), int(seed), dtype=torch.int32, device=dev)))
+                torch.full((), int(seed), dtype=torch.int32, device=device)))
             params = c.q_init(keys[0])
             replay = replay_init(c.dcfg.replay_capacity,
                                  pipe.shape + (c.dcfg.frame_stack,),
-                                 obs_dtype=pipe.dtype, device=dev)
+                                 obs_dtype=pipe.dtype, device=device)
             sampler = sampler_init(c.env, c.dcfg, keys[1], pipe)
-            replay, sampler = prepopulate(c.env, c.qf, c.dcfg, replay,
-                                          sampler, c.dcfg.prepopulate, pipe)
-            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            if fill:
+                replay, sampler = prepopulate(c.env, c.qf, c.dcfg, replay,
+                                              sampler, c.dcfg.prepopulate,
+                                              pipe)
+            zero = torch.zeros((), dtype=torch.int32, device=device)
             return BaselineCarry(params, params, c.opt.init(params), replay,
                                  sampler, zero, zero.clone())
 

@@ -24,10 +24,12 @@ def make_replica_init(spec: EnvSpec, q_init_fn: Callable,
     optimizer state, a replay prepopulated with ``cfg.prepopulate``
     uniform-random transitions, and the sampler streams, all derived
     from ``PRNGKey(seed)``, split once between the network init and the
-    sampler."""
+    sampler. ``init_one(seed, device="meta", fill=False)`` builds only
+    the carry's structure, shapes and dtypes (no data, no prepopulate:
+    it changes no shape), the port's ``jax.eval_shape`` of the init."""
     pipe = as_obs(obs)
 
-    def init_one(seed: int) -> TrainerCarry:
+    def init_one(seed: int, device=device, fill: bool = True) -> TrainerCarry:
         seed_t = torch.full((), int(seed), dtype=torch.int32, device=device)
         keys = rng.split(rng.PRNGKey(seed_t))
         params = q_init_fn(keys[0])
@@ -37,8 +39,9 @@ def make_replica_init(spec: EnvSpec, q_init_fn: Callable,
                              prioritized=cfg.variant.prioritized,
                              device=device)
         sampler = sampler_init(spec, cfg, keys[1], pipe)
-        replay, sampler = prepopulate(spec, q_forward, cfg, replay, sampler,
-                                      cfg.prepopulate, pipe)
+        if fill:
+            replay, sampler = prepopulate(spec, q_forward, cfg, replay,
+                                          sampler, cfg.prepopulate, pipe)
         step = torch.zeros((), dtype=torch.int32, device=device)
         return TrainerCarry(params, opt.init(params), replay, sampler, step,
                             seed_t)

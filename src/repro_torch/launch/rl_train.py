@@ -8,13 +8,26 @@ CPU.
       --spec examples/specs/rainbow_fleet.json --mode concurrent --seeds 1 \\
       [--obs-mode vector] [--device cpu]
 
+  # checkpoints with resume, and per-cycle metrics as JSON lines
+  PYTHONPATH=src python -m repro_torch.launch.rl_train \\
+      --spec examples/specs/baseline_catch.json --ckpt-dir runs/catch \\
+      --metrics-jsonl runs/catch/metrics.jsonl [--resume]
+
 Flags override the spec's fields (no ``--spec``: the ExperimentSpec
-defaults). Modes ``baseline``, ``synchronized`` and ``concurrent`` run;
-``population`` and ``--seeds`` above 1, sweeps, checkpoints and traces
-exit 2 naming the ROADMAP.md item that will port them. The optimizer is
-the spec's (AdamW by default); ``--optimizer rmsprop`` (alias
-``--paper-optimizer``) selects Mnih's centered RMSProp, and
-``--optimizer`` overrides the spec either way. ``--device cuda`` (the
+defaults); ``--print-spec`` prints the resolved spec as canonical JSON
+and exits. Modes ``baseline``, ``synchronized`` and ``concurrent`` run;
+``population`` and ``--seeds`` above 1, sweeps and traces exit 2 naming
+the ROADMAP.md item that will port them. ``--ckpt-dir`` (or the spec's
+``checkpoint.dir``) checkpoints the whole carry every ``--ckpt-every``
+cycles and at the last one, in the JAX package's layout, with the
+resolved spec stored beside it; ``--resume`` restarts from the newest
+restorable checkpoint, bitwise equal to the uninterrupted run, and is
+refused (exit 2, with the field-level diff) when the requested spec no
+longer matches the stored one. ``--metrics-jsonl`` appends one JSON line
+per (cycle, replica). The optimizer is the spec's (AdamW by default);
+``--optimizer rmsprop`` (alias ``--paper-optimizer``) selects Mnih's
+centered RMSProp, and ``--optimizer`` overrides the spec either way.
+``--dryrun`` shrinks the run to a few seconds. ``--device cuda`` (the
 default) raises when no card is visible.
 """
 
@@ -23,13 +36,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import torch
 
-from repro_torch.api.spec import MODES, ExperimentSpec
+from repro_torch.api.spec import (MODES, ExperimentSpec, SpecCompatError,
+                                  check_resume_compat, load_run_spec,
+                                  save_run_spec)
 from repro_torch.api.trainers import build_trainer
+from repro_torch.checkpoint import (latest_step, restore_latest,
+                                    save_checkpoint, trim_metrics_jsonl)
 from repro_torch.configs.dqn_nature import VARIANTS, get_variant
 
 # flag or mode -> the ROADMAP.md item (queue 1) that ports it
@@ -37,7 +55,6 @@ NOT_PORTED = {
     "population": "item 9 (population and sweeps)",
     "--seeds": "item 9 (population and sweeps)",
     "--sweep": "item 9 (population and sweeps)",
-    "--ckpt-dir": "item 8 (checkpoints)",
     "--trace": "item 12 (telemetry)",
 }
 
@@ -46,6 +63,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.rl_train")
     ap.add_argument("--spec", default=None, metavar="FILE",
                     help="ExperimentSpec JSON (flags override its fields)")
+    ap.add_argument("--print-spec", action="store_true",
+                    help="print the resolved spec as canonical JSON and "
+                         "exit (commit it, re-run with --spec)")
     ap.add_argument("--mode", default=None, choices=list(MODES))
     ap.add_argument("--env", default=None)
     ap.add_argument("--envs", type=int, default=None)
@@ -71,8 +91,24 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--seeds", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint the whole carry here (the resolved "
+                         "spec is stored beside the checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="cycles between checkpoints (with --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest restorable checkpoint in "
+                         "--ckpt-dir (bitwise equal to the uninterrupted "
+                         "run)")
+    ap.add_argument("--metrics-jsonl", default=None,
+                    help="append per-(cycle, replica) metrics as JSON lines")
+    ap.add_argument("--compute-dtype", default=None,
+                    choices=["float32", "bfloat16"],
+                    help="Q-network compute dtype (the port's DQN path "
+                         "runs float32 only)")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="one tiny run: W=4, 2 cycles of 32 steps")
     ap.add_argument("--sweep", default=None, metavar="FILE")
-    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--trace", default=None, metavar="FILE")
     return ap.parse_args(argv)
 
@@ -112,14 +148,25 @@ def resolve_spec(args) -> ExperimentSpec:
         "seed": args.seed, "seeds": args.seeds,
         "variant": get_variant(args.variant) if args.variant else None,
     }.items() if v is not None}
-    return dataclasses.replace(
+    spec = dataclasses.replace(
         spec, **top,
         schedule=sub(spec.schedule, cycles=args.cycles,
                      cycle_steps=args.cycle_steps,
                      prepopulate=args.prepopulate,
                      eval_every=args.eval_every),
         algo=sub(spec.algo, optimizer=args.optimizer or
-                 ("rmsprop" if args.paper_optimizer else None)))
+                 ("rmsprop" if args.paper_optimizer else None)),
+        checkpoint=sub(spec.checkpoint, dir=args.ckpt_dir,
+                       every=args.ckpt_every),
+        metrics=sub(spec.metrics, jsonl=args.metrics_jsonl),
+        exec=sub(spec.exec, compute_dtype=args.compute_dtype))
+    if args.dryrun:
+        spec = dataclasses.replace(
+            spec, envs=4,
+            schedule=dataclasses.replace(spec.schedule, cycles=2,
+                                         cycle_steps=32, prepopulate=64,
+                                         eval_every=2))
+    return spec
 
 
 def _refuse(what: str) -> int:
@@ -130,55 +177,143 @@ def _refuse(what: str) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag in ("--sweep", "--ckpt-dir", "--trace"):
-        if getattr(args, flag[2:].replace("-", "_")):
+    for flag in ("--sweep", "--trace"):
+        if getattr(args, flag[2:]):
             return _refuse(flag)
     try:
         spec = resolve_spec(args)
-        spec.validate()
     except (OSError, ValueError) as e:
+        print(f"invalid spec: {e}", file=sys.stderr, flush=True)
+        return 2
+    if args.print_spec:
+        print(spec.to_json(), end="")
+        return 0
+    try:
+        spec.validate()
+    except ValueError as e:
         print(f"invalid spec: {e}", file=sys.stderr, flush=True)
         return 2
     if spec.mode == "population":
         return _refuse("population")
     if spec.seeds > 1:
         return _refuse("--seeds")
-    if spec.checkpoint.dir:
-        print(f"note: the spec's checkpoint.dir {spec.checkpoint.dir!r} is "
-              "ignored: checkpoints are not ported to repro_torch yet "
-              f"(ROADMAP.md, queue 1 {NOT_PORTED['--ckpt-dir']})",
-              file=sys.stderr, flush=True)
     try:
         trainer = build_trainer(spec, device=args.device)
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         print(f"invalid spec: {e}", file=sys.stderr, flush=True)
         return 2
-    sched = spec.schedule
+    sched, ckpt_dir = spec.schedule, spec.checkpoint.dir
     tag = f"{spec.mode}/{spec.variant.name}"
 
     def sync():
         if trainer.device.type == "cuda":
             torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    carry = trainer.init_carry()
-    sync()
-    print(f"[{tag}] {spec.env} ({spec.obs_mode}) init_carry "
-          f"{time.perf_counter() - t0:.2f} s on {trainer.device}", flush=True)
-    t0 = time.perf_counter()
-    for i in range(sched.cycles):
-        carry, m = trainer.cycle(carry)
-        if (i + 1) % sched.eval_every == 0 or i == sched.cycles - 1:
-            evals = trainer.eval(carry, trainer.eval_key(i))
-            sync()
-            steps = int(trainer.steps(carry)[0])
-            sps = (i + 1) * sched.cycle_steps / max(time.perf_counter() - t0,
-                                                    1e-9)
-            print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} "
-                  f"eval {float(evals[0]):+.2f} "
-                  f"loss {float(m['loss'][0]):.4f} "
-                  f"eps {float(m['eps'][0]):.2f} | {sps:.0f} env-steps/s",
+    # the guards come before any init: a resume whose spec differs from
+    # the stored one, and a directory holding another run's checkpoints
+    last = latest_step(ckpt_dir) if args.resume and ckpt_dir else None
+    if last is not None:
+        try:
+            stored = load_run_spec(ckpt_dir)
+            if stored is not None:
+                check_resume_compat(stored, spec)
+        except SpecCompatError as e:
+            print(f"cannot resume {ckpt_dir}: {e}", file=sys.stderr,
                   flush=True)
+            return 2
+    if ckpt_dir:
+        try:
+            save_run_spec(ckpt_dir, spec)
+        except SpecCompatError as e:
+            print(f"refusing to reuse {ckpt_dir}: {e}", file=sys.stderr,
+                  flush=True)
+            return 2
+
+    start_cycle, carry = 0, None
+    if last is not None:
+        # the template is the carry's structure only (meta tensors); a
+        # torn checkpoint is skipped with a warning and the walk falls
+        # back to the newest step that still restores
+        step, carry, skipped = restore_latest(
+            ckpt_dir, trainer.init_template(), device=trainer.device)
+        for s in skipped:
+            print(f"WARNING: skipped unrestorable checkpoint {s}", flush=True)
+        if carry is not None:
+            start_cycle = step
+            print(f"resumed {ckpt_dir} at cycle {step}", flush=True)
+        else:
+            print(f"no restorable checkpoint in {ckpt_dir}; starting fresh",
+                  flush=True)
+    if carry is None:
+        t0 = time.perf_counter()
+        carry = trainer.init_carry()
+        sync()
+        print(f"[{tag}] {spec.env} ({spec.obs_mode}) init_carry "
+              f"{time.perf_counter() - t0:.2f} s on {trainer.device}",
+              flush=True)
+
+    metrics_f = None
+    if spec.metrics.jsonl:
+        os.makedirs(os.path.dirname(spec.metrics.jsonl) or ".",
+                    exist_ok=True)
+        if os.path.exists(spec.metrics.jsonl):
+            trim_metrics_jsonl(spec.metrics.jsonl, start_cycle)
+        metrics_f = open(spec.metrics.jsonl, "a", buffering=1)
+
+    def emit(i, m, evals):
+        # one device-to-host copy per cycle (float32 and int32 values
+        # are exact in float64)
+        cols = [m["loss"], m["reward"], m["episodes"], trainer.steps(carry)]
+        if evals is not None:
+            cols.append(evals)
+        host = torch.stack([c.to(torch.float64) for c in cols]).cpu().tolist()
+        for r in range(trainer.replicas):
+            row = {"cycle": i + 1, "env": spec.env, "mode": spec.mode,
+                   "variant": spec.variant.name, "seed": spec.seed + r,
+                   "step": int(host[3][r]), "loss": host[0][r],
+                   "reward": host[1][r], "episodes": host[2][r]}
+            if evals is not None:
+                row["eval"] = host[4][r]
+            metrics_f.write(json.dumps(row) + "\n")
+
+    env_steps = trainer.replicas * sched.cycle_steps
+    t0 = time.perf_counter()
+    win_t, win_start = t0, start_cycle
+    try:
+        for i in range(start_cycle, sched.cycles):
+            carry, m = trainer.cycle(carry)
+            evals = None
+            if (i + 1) % sched.eval_every == 0 or i == sched.cycles - 1:
+                evals = trainer.eval(carry, trainer.eval_key(i))
+                sync()
+                steps = int(trainer.steps(carry)[0])
+                sps = (i + 1 - start_cycle) * env_steps / max(
+                    time.perf_counter() - t0, 1e-9)
+                print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} "
+                      f"eval {float(evals[0]):+.2f} "
+                      f"loss {float(m['loss'][0]):.4f} "
+                      f"eps {float(m['eps'][0]):.2f} | {sps:.0f} env-steps/s",
+                      flush=True)
+            if metrics_f is not None:
+                emit(i, m, evals)
+            boundary = ((i + 1) % spec.checkpoint.every == 0
+                        or i == sched.cycles - 1)
+            if ckpt_dir and boundary:
+                save_checkpoint(ckpt_dir, i + 1, carry)
+            if boundary:
+                # per-interval throughput: long runs stay observable
+                sync()
+                now = time.perf_counter()
+                dc, dt = i + 1 - win_start, max(now - win_t, 1e-9)
+                print(f"[throughput] cycle {i + 1:4d}: {dc / dt:.2f} "
+                      f"cycles/s, {dc * env_steps / dt:.0f} env-steps/s "
+                      f"(last {dc} cycle(s))", flush=True)
+                win_t, win_start = now, i + 1
+    finally:
+        if metrics_f is not None:
+            metrics_f.close()
+    if args.dryrun:
+        print(f"DRYRUN OK variant={spec.variant.name}", flush=True)
     return 0
 
 

@@ -224,8 +224,8 @@ def test_launcher_runs_on_cpu_only_when_asked(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (("--mode", "population"), "item 9"), (("--seeds", "4"), "item 9"),
-    (("--sweep", "x.json"), "item 9"), (("--ckpt-dir", "ck"), "item 8"),
-    (("--trace", "t.jsonl"), "item 12")])
+    (("--sweep", "x.json"), "item 9"), (("--trace", "t.jsonl"), "item 12"),
+    (("--compute-dtype", "bfloat16"), "item 7")])
 def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
     from repro_torch.launch import rl_train
     path = tmp_path / "spec.json"
@@ -233,6 +233,66 @@ def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
     assert rl_train.main(["--spec", str(path), "--device", "cpu",
                           *extra]) == 2
     assert item in capsys.readouterr().err
+
+
+def test_launcher_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
+    """--ckpt-dir checkpoints every cycle beside the stored spec;
+    --resume continues from the newest checkpoint with one metrics row
+    per cycle, and a changed spec is refused with the field diff."""
+    from repro_torch.checkpoint import list_steps
+    from repro_torch.launch import rl_train
+    torch.set_num_threads(1)
+    tspec = _specs("dqn")[1]
+    # a pinned ε horizon: a derived one would change with --cycles
+    tspec = ExperimentSpec.from_dict({**tspec.to_dict(), "algo": {
+        **tspec.to_dict()["algo"], "eps_anneal_steps": 64}})
+    path = tmp_path / "spec.json"
+    path.write_text(tspec.to_json())
+    d = str(tmp_path / "run")
+    args = ["--spec", str(path), "--device", "cpu", "--ckpt-dir", d,
+            "--ckpt-every", "1", "--metrics-jsonl", f"{d}/m.jsonl",
+            "--cycle-steps", "32", "--prepopulate", "64", "--env-param",
+            "max_steps=20"]
+    assert rl_train.main(args + ["--cycles", "1"]) == 0
+    assert list_steps(d) == [1]
+    stored = (tmp_path / "run" / "spec.json").read_text()
+    assert ExperimentSpec.from_json(stored).to_json() == stored
+    assert json.loads(stored)["checkpoint"] == {"dir": d, "every": 1}
+    capsys.readouterr()
+    assert rl_train.main(args + ["--cycles", "2", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert f"resumed {d} at cycle 1" in out, out
+    assert "init_carry" not in out and "[throughput] cycle    2" in out
+    assert list_steps(d) == [1, 2]
+    rows = [json.loads(ln) for ln in open(f"{d}/m.jsonl")]
+    assert [(r["cycle"], r["step"]) for r in rows] == [(1, 32), (2, 64)]
+    assert rl_train.main(args + ["--cycles", "3", "--resume", "--envs",
+                                 "2"]) == 2
+    err = capsys.readouterr().err
+    assert f"cannot resume {d}" in err and "envs: checkpoint=4, " \
+        "requested=2" in err, err
+    assert list_steps(d) == [1, 2]
+    # a torn newest checkpoint is skipped by name; the run resumes below it
+    torn = tmp_path / "run" / "step_00000002.npz"
+    torn.write_bytes(torn.read_bytes()[:100])
+    assert rl_train.main(args + ["--cycles", "2", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "WARNING: skipped unrestorable checkpoint" in out, out
+    assert "step_00000002.npz" in out and f"resumed {d} at cycle 1" in out
+    rows = [json.loads(ln) for ln in open(f"{d}/m.jsonl")]
+    assert [(r["cycle"], r["step"]) for r in rows] == [(1, 32), (2, 64)]
+
+
+def test_launcher_prints_the_canonical_spec(tmp_path, capsys):
+    from repro_torch.launch import rl_train
+    spec = ROOT / "examples" / "specs" / "rainbow_fleet.json"
+    assert rl_train.main(["--spec", str(spec), "--print-spec"]) == 0
+    out = capsys.readouterr().out
+    assert out == spec.read_text()
+    assert rl_train.main(["--spec", str(spec), "--print-spec", "--cycles",
+                          "3", "--ckpt-dir", "runs/x"]) == 0
+    printed = ExperimentSpec.from_json(capsys.readouterr().out)
+    assert printed.schedule.cycles == 3 and printed.checkpoint.dir == "runs/x"
 
 
 @pytest.mark.parametrize("name,mode,variant", [
