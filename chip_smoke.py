@@ -11,7 +11,9 @@ Phases, each printing its own lines:
 3. kernel parity on the card against the plain PyTorch versions, at the
    main paths' shapes and at edge cases: the PER tree build and the
    segment tree bit for bit (P up to 2^20), the C51 projection to 1e-6
-   and bit for bit against the CPU replay of its schedule, RMSNorm
+   and bit for bit against the CPU replay of its schedule, and the three
+   with R = 4 and 16 replicas in one launch each (16384 leaves per tree)
+   bit for bit against R one-tree plain calls, RMSNorm
    (prefill and decode rows at the serve paths' widths 5120, 2560, 1536
    and 768), flash attention and decode attention to 2e-4 in float32
    and 2e-2 in bfloat16;
@@ -19,7 +21,7 @@ Phases, each printing its own lines:
    the plain versions' times, a one-call PyTorch yardstick where one
    exists, and the bound the card's peak rates set; an empty kernel
    timed the same way gives the launch floor of the two latency-bound
-   DQN kernels;
+   DQN kernels; the DQN kernels also at R = 4 and 16 replicas;
 5. the DQN path: ConcurrentTrainer on examples/specs/dqn_nature84.json
    with the rainbow variant (84x84x4 pong frames, the Nature CNN, W=8,
    C=512, F=2, a 16384-slot replay): init_carry, 2 cycles and one eval,
@@ -52,10 +54,18 @@ Phases, each printing its own lines:
    with s/cycle and env-steps/s, one eval, no custom kernel launched),
    two cycles from one carry bitwise equal, and a small configuration
    of each mode against the CPU path (integers exact, floats to 1e-4);
-13. rainbow_fleet.json for one replica (mode concurrent, seeds 1,
-   AdamW, rainbow on catch) in pixels and in vector mode (the mlp net):
-   init and one cycle each, both DQN kernels' and the tree build's
-   launches counted over that run (C/F of each kernel per cycle);
+13. population: rainbow_fleet.json as written (mode population, 4 seeds,
+   AdamW, rainbow on catch, W=8, C=256, F=2): pixels init and 2 cycles,
+   vector (the mlp net) init and 1 cycle; the P=1 point, one replica as
+   mode concurrent (ConcurrentTrainer, seeds 1), init and 1 cycle in
+   pixels and in vector mode; one pixels cycle at P=16; each with
+   s/cycle, env-steps/s over all replicas and the replicas' losses, and
+   the DQN kernels' launches counted (C/F descents and projections, at
+   most 2 builds a cycle, at every P); all kernel launches of one cycle
+   cut to PROFILED_STEPS at P=1 (concurrent) and P=4 (the profiler, CUDA
+   activity only; P=4 at most 1.25x P=1), two runs of one cut P=4 cycle
+   from one carry bitwise equal, and a small population against the CPU
+   path;
 14. Table 1 on the card: the 14 cells of launch/table1.py at 84x84x4
    (TABLE1_STEPS env steps a cell), each row and the paper's layout,
    with the reference's transaction invariants (synchronized inference
@@ -64,31 +74,36 @@ Phases, each printing its own lines:
    Phases 12-14 run after the serve phases, and the card memory still
    allocated after them is printed;
 15. resume on the card: rainbow_fleet.json for one replica (rainbow on
-   catch, pixels) and baseline_catch.json, cycles cut to RESUME_STEPS
-   steps and prepopulate to RESUME_PREPOPULATE: 2 cycles checkpointed
+   catch, pixels), as written (P=4) and baseline_catch.json, cycles cut
+   to RESUME_STEPS steps and prepopulate to RESUME_PREPOPULATE: 2 cycles
+   checkpointed
    after each, step 2 deleted, step 1 restored through restore_latest
    and cycle 2 run again, bitwise equal to the uninterrupted cycle 2
    leaf for leaf, with both DQN kernels and the tree build launched in
    the resumed rainbow cycle; the same checkpoint restored on the CPU
    runs cycle 2 as the card does (integers exact, floats to 1e-4);
-16. the launcher end to end: rl_train in processes of its own with
-   --ckpt-dir and --metrics-jsonl for 2 cycles, then --cycles 3
-   --resume (the resume line, one metrics row per cycle), then a changed
+16. the launcher end to end: rl_train on rainbow_fleet.json with its 4
+   seeds in processes of its own with --ckpt-dir and --metrics-jsonl for
+   2 cycles, then --cycles 3 --resume (the resume line, 4 metrics rows
+   per cycle, one per replica), then a changed
    spec refused with exit 2 and its field diff (in this process: the
-   refusal comes before any init);
+   refusal comes before any init); beside the fleet's first call, one
+   replica (mode concurrent, the launcher's single-carry branch) for 2
+   cycles, one metrics row a cycle and a checkpoint;
 17. policy serving at full width: a checkpoint of dqn_nature84.json with
    rainbow (pong 84x84x4, a 16384-slot replay; one short cycle), its
    save and restore timed; SERVE_CLIENTS simulated clients x SERVE_TICKS
    ticks under greedy, egreedy and noisy, and the catch checkpoint of
    phase 16 at 256 clients (and through launch/serve_policy.py --smoke),
+   with replica 2 of it served as policy_step acts on its parameters,
    with actions/s, p50 and p99 latency and microbatches per tick, every
    client answered on every tick, each tick split into the clients'
    and the server's parts, and one flush and one client step profiled
    (egreedy, noisy); served actions equal a direct
    policy_step on the same stacks and keys bitwise, and do not change
    when the same requests arrive in another bucket and company.
-   Phases 15-17 print their wall time; each keeps its checkpoints in a
-   temporary directory it removes.
+   Each phase prints its wall time; phases 15-17 keep their checkpoints
+   in a temporary directory they remove.
 
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
@@ -169,6 +184,9 @@ RMSNORM_CASES = tuple((rows, D) for D in (5120, 2560, 1536, 768)
 TIMED_RUNS = 200
 # the PER tree build's leaf counts and the descent's (P, n) in parity
 TREE_BUILD_CASES = (1, 2, 8, 2048, 16384, 1 << 20)
+# a population's replica counts: the DQN kernels' parity and times with R
+# trees (or R minibatches) in one launch, and the fleet's runs against P
+REPLICA_CASES = (4, 16)
 SEGMENT_TREE_CASES = ((16384, 32), (16384, 4096), (1, 3), (8, 5), (2048, 64),
                       (1 << 20, 4096))
 # the kernels whose rows carry the launch floor (floor_ms)
@@ -342,7 +360,75 @@ def phase_parity(dev):
         f"and bitwise equal to projection_hat on {len(cases)} cases "
         f"(K=1, v_min=v_max, rewards outside the support, dones); max abs "
         f"err at B=32 K=51: {errs['categorical_projection']:.3e}")
+    _replica_parity(gen, dev)
     return errs
+
+
+def replica_case(R: int, gen: torch.Generator, dev, P: int = 16384,
+                 n: int = 32, B: int = 32, K: int = 51):
+    """A population's inputs to the DQN kernels: R replicas' leaf masses
+    (each its own zero tail), their targets over [0, 1.05 total) with
+    the last at each total, and R minibatches of projection rows."""
+    from repro_torch.kernels.segment_tree import tree_build
+    leaves = torch.rand(R, P, generator=gen, dtype=torch.float64).float()
+    for r in range(R):
+        leaves[r, P - (r * P) // (2 * R):] = 0.0
+    leaves = leaves.to(dev)
+    trees = tree_build(leaves)
+    targets = (torch.rand(R, n, generator=gen, dtype=torch.float64)
+               * 1.05).float().to(dev) * trees[:, 1:2]
+    targets[:, -1] = trees[:, 1]
+    rows = [projection_case(B, K, gen, dev) for _ in range(R)]
+    probs, rewards, dones = (torch.stack(x) for x in zip(*rows))
+    return leaves, trees, targets, probs, rewards, dones
+
+
+def _replica_parity(gen: torch.Generator, dev) -> None:
+    """R replicas in one launch each (N = 16384 leaves, 32 targets, 32
+    rows of 51 atoms per replica): the tree build and the descent bit for
+    bit against R one-tree plain calls, the projection of R B rows bit
+    for bit against projection_hat and within 1e-6 of R plain calls."""
+    from repro_torch.kernels import categorical_projection as cp
+    from repro_torch.kernels import segment_tree as st
+    kw = dict(v_min=-10.0, v_max=10.0, gamma_n=0.9 ** 3)
+    for R in REPLICA_CASES:
+        leaves, _, _, probs, rewards, dones = replica_case(R, gen, dev)
+        before = read_launches()
+        trees = st.tree_build(leaves)
+        targets = (torch.rand(R, 32, generator=gen, dtype=torch.float64)
+                   * 1.05).float().to(dev) * trees[:, 1:2]
+        targets[:, -1] = trees[:, 1]
+        got = st.segment_tree_sample(trees, targets)
+        proj = cp.categorical_projection(probs, rewards, dones, **kw)
+        torch.cuda.synchronize()
+        after = read_launches()
+        check((after["tree_build"] - before["tree_build"],
+               after["segment_tree"] - before["segment_tree"],
+               after["categorical_projection"]
+               - before["categorical_projection"])
+              == (len(st.tree_build_plan(16384)), 1, 1),
+              f"R={R}: the replica calls launched {after} after {before}")
+        for r in range(R):
+            check(torch.equal(trees[r], st.tree_build_plain(leaves[r])),
+                  f"tree_build at R={R} differs from the plain version on "
+                  f"tree {r}")
+            check(torch.equal(got[r], st.segment_tree_sample_plain(
+                trees[r], targets[r])),
+                  f"segment_tree at R={R} differs from the plain version on "
+                  f"tree {r}")
+            want = cp.categorical_projection_plain(
+                probs[r], rewards[r], dones[r].float(), **kw)
+            check(torch.allclose(proj[r], want, atol=1e-6, rtol=1e-6),
+                  f"categorical_projection at R={R} differs from the plain "
+                  f"version on replica {r}")
+        check(torch.equal(proj.cpu(), cp.projection_hat(
+            probs.cpu(), rewards.cpu(), dones.cpu(), **kw)),
+              f"categorical_projection at R={R} differs from projection_hat")
+    say(f"parity with R replicas in one launch each, R in {REPLICA_CASES} "
+        "(16384 leaves, 32 targets, 32 x 51 rows per replica): tree_build "
+        "and segment_tree bitwise equal to R one-tree plain calls, "
+        "categorical_projection bitwise equal to projection_hat and within "
+        "1e-6 of R plain calls")
 
 
 def phase_times(dev):
@@ -393,6 +479,27 @@ def phase_times(dev):
         say(f"time {name}: kernel {k_ms:.4f} ms{floor}, plain {p_ms:.4f} ms, "
             f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}, "
             f"{nbytes} bytes, {nops} f32 ops")
+    for R in REPLICA_CASES:
+        leaves, trees, targets, probs, rewards, dones = replica_case(R, gen,
+                                                                     dev)
+        d32 = dones.float()
+        rows = {
+            "segment_tree": (
+                time_ms(lambda: st.segment_tree_sample(trees, targets)),
+                time_ms(lambda: st.segment_tree_sample_plain(trees, targets))),
+            "tree_build": (time_ms(lambda: st.tree_build(leaves)),
+                           time_ms(lambda: st.tree_build_plain(leaves))),
+            "categorical_projection": (
+                time_ms(lambda: cp.categorical_projection(probs, rewards,
+                                                          d32, **kw)),
+                time_ms(lambda: cp.categorical_projection_plain(
+                    probs.reshape(-1, K), rewards.reshape(-1),
+                    d32.reshape(-1), **kw)))}
+        for name, (k_ms, p_ms) in rows.items():
+            say(f"time {name} at R={R} replicas (one launch for all; P=1 "
+                f"above {out[name][0]:.4f} ms): kernel {k_ms:.4f} ms, "
+                f"{k_ms / floor_ms:.2f}x the launch floor, plain "
+                f"{p_ms:.4f} ms")
     return out, floor_ms
 
 
@@ -677,50 +784,119 @@ def phase_sequential(dev):
         _card_vs_cpu(spec, f"{mode}, catch 10x10, tiny net, {variant}")
 
 
-def phase_fleet(dev):
-    """rainbow_fleet.json for one replica (mode concurrent, seeds 1;
-    AdamW; rainbow on catch), in pixels and in vector mode (the mlp net):
-    init and one cycle each, both DQN kernels' launches counted over
-    that run. Returns the counts of the two runs together."""
+def _fleet_cycles(spec, label: str, cycles: int) -> dict:
+    """Init and ``cycles`` cycles of a fleet spec on the card through
+    build_trainer, each printing s/cycle, env-steps/s over all replicas
+    and the replicas' losses; the DQN kernels' and the tree build's
+    launches counted over the cycles (set to 0 after the init) and
+    checked: C/F descents and projections and at most 2 builds a cycle,
+    whatever P. Returns the counts and the last cycle's seconds."""
     from repro_torch.api.trainers import build_trainer
     from repro_torch.kernels import segment_tree as st
-    base = dataclasses.replace(_spec_file("rainbow_fleet"),
-                               mode="concurrent", seeds=1)
-    total = {}
-    for obs in ("pixels", "vector"):
-        spec = dataclasses.replace(base, obs_mode=obs)
-        trainer = build_trainer(spec, device="cuda")
-        C = spec.schedule.cycle_steps
-        updates = C // spec.algo.train_period
-        builds = len(st.tree_build_plan(
-            st.next_pow2(spec.algo.replay_capacity)))
-        reset_launches()
-        t0 = time.perf_counter()
-        carry = trainer.init_carry()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
+    trainer = build_trainer(spec, device="cuda")
+    P, C = trainer.replicas, spec.schedule.cycle_steps
+    updates = C // spec.algo.train_period
+    builds = len(st.tree_build_plan(st.next_pow2(spec.algo.replay_capacity)))
+    t0 = time.perf_counter()
+    carry = trainer.init_carry()
+    torch.cuda.synchronize()
+    say(f"fleet {label}: init {time.perf_counter() - t0:.2f} s (P={P}, "
+        f"prepopulate {spec.schedule.prepopulate} over {P * spec.envs} "
+        "streams)")
+    reset_launches()
+    for i in range(cycles):
         t0 = time.perf_counter()
         carry, m = trainer.cycle(carry)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = read_launches()
-        say(f"fleet replica, catch {obs} ({spec.variant.name}, "
-            f"{spec.algo.optimizer}): init "
-            f"{init_s:.2f} s, cycle {dt:.3f} s/cycle, {C / dt:.1f} "
-            f"env-steps/s, loss {float(m['loss'][0]):.6f}; launches "
-            f"{ {k: v for k, v in launches.items() if v} }")
-        check(torch.isfinite(m["loss"]).all().item(),
-              f"fleet {obs}: non-finite loss")
-        for name in ("segment_tree", "categorical_projection"):
-            check(launches[name] == updates,
-                  f"fleet {obs}: {name} launched {launches[name]} times, "
-                  f"expected {updates}")
-        check(0 < launches["tree_build"] <= builds,
-              f"fleet {obs}: tree_build launched {launches['tree_build']} "
-              f"times, expected {builds}")
-        for name, n in launches.items():
-            total[name] = total.get(name, 0) + n
+        losses = ", ".join(f"{v:.6f}" for v in m["loss"].tolist())
+        say(f"fleet {label} cycle {i + 1}: {dt:.3f} s/cycle, "
+            f"{P * C / dt:.1f} env-steps/s over {P} replicas, losses "
+            f"[{losses}]")
+        check(tuple(m["loss"].shape) == (P,)
+              and torch.isfinite(m["loss"]).all().item(),
+              f"fleet {label}: losses {m['loss']}")
+    launches = read_launches()
+    for name in ("segment_tree", "categorical_projection"):
+        check(launches[name] == updates * cycles,
+              f"fleet {label}: {name} launched {launches[name]} times in "
+              f"{cycles} cycle(s), expected {updates} a cycle")
+    check(0 < launches["tree_build"] <= builds * cycles and builds <= 2,
+          f"fleet {label}: tree_build launched {launches['tree_build']} "
+          f"times in {cycles} cycle(s), expected {builds} a cycle")
+    # a population's carry leads with P; the single replica's keeps the
+    # concurrent layout
+    lead = (P,) if spec.mode == "population" else ()
+    obs_lead = tuple(carry.replay["obs"].shape[:len(lead) + 1])
+    check(obs_lead == lead + (spec.algo.replay_capacity,)
+          and all(t.device.type == "cuda" for _, t in _paths(carry)),
+          f"fleet {label}: replay obs leads with {obs_lead}, expected "
+          f"{lead + (spec.algo.replay_capacity,)}, or a leaf is not on the "
+          "card")
+    say(f"fleet {label}: launches over {cycles} cycle(s) "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    del trainer, carry
+    return {"launches": launches, "s": dt}
+
+
+def phase_fleet(dev):
+    """rainbow_fleet.json as written (mode population, 4 seeds; AdamW;
+    rainbow on catch, W=8, C=256, F=2): pixels init and 2 cycles, vector
+    (the mlp net) init and 1 cycle; the P=1 point, one replica as mode
+    concurrent (ConcurrentTrainer, seeds 1), init and 1 cycle in pixels
+    and in vector mode; one pixels cycle at P=16; s/cycle and
+    env-steps/s against P; the launches of one cycle cut to
+    PROFILED_STEPS at P=1 (concurrent) and P=4; two runs of one P=4 cycle
+    from one carry bitwise equal; a small population against the CPU
+    path. Returns the launches of the P=4 and P=1 runs together."""
+    from repro_torch.api.spec import AlgoSpec, ScheduleSpec
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.configs.dqn_nature import get_variant
+    fleet = _spec_file("rainbow_fleet")
+    check(fleet.mode == "population" and fleet.seeds == 4,
+          "rainbow_fleet.json is no longer a 4-seed population")
+    total, per_p = {}, {}
+    for obs, cycles in (("pixels", 2), ("vector", 1)):
+        run = _fleet_cycles(dataclasses.replace(fleet, obs_mode=obs),
+                            f"P=4 {obs}", cycles)
+        one = _fleet_cycles(dataclasses.replace(_fleet_replica(),
+                                                obs_mode=obs),
+                            f"P=1 {obs} (concurrent, one replica)", 1)
+        for r in (run, one):
+            for name, n in r["launches"].items():
+                total[name] = total.get(name, 0) + n
+        if obs == "pixels":
+            per_p[4], per_p[1] = run["s"], one["s"]
+    per_p[16] = _fleet_cycles(dataclasses.replace(fleet, seeds=16),
+                              "P=16 pixels", 1)["s"]
+    C = fleet.schedule.cycle_steps
+    say("fleet against P (pixels, C=256): " + ", ".join(
+        f"P={P} {per_p[P]:.3f} s/cycle, {P * C / per_p[P]:.1f} env-steps/s"
+        for P in sorted(per_p)))
+    # the launches of one cut cycle at P=1 (concurrent) and P=4 (the
+    # profiler)
+    cut = dict(cycle_steps=PROFILED_STEPS, prepopulate=RESUME_PREPOPULATE)
+    counts = {}
+    for P, spec in ((1, _fleet_replica(**cut)), (4, _fleet_spec(**cut))):
+        trainer = build_trainer(spec, device="cuda")
+        carry = trainer.init_carry()
+        counts[P] = launch_count(
+            f"fleet P={P} cycle C={PROFILED_STEPS}",
+            lambda: trainer.cycle(_clone(carry)))["launches"]
+        if P == 4:
+            phase_determinism(trainer, carry, "fleet P=4 ")
         del trainer, carry
+    say(f"fleet launches of one cycle cut to C={PROFILED_STEPS}: P=1 "
+        f"{counts[1]}, P=4 {counts[4]} ({counts[4] / counts[1]:.3f}x)")
+    check(counts[4] <= 1.25 * counts[1],
+          f"a P=4 cycle made {counts[4]} launches, more than 1.25x P=1's "
+          f"{counts[1]}: the replica axis is not carried by the kernels")
+    small = dataclasses.replace(
+        fleet, variant=get_variant("rainbow"), seeds=3, envs=4, net="tiny",
+        schedule=ScheduleSpec(cycles=1, cycle_steps=32, prepopulate=64),
+        algo=AlgoSpec(minibatch_size=8, replay_capacity=256,
+                      optimizer="adamw"))
+    _card_vs_cpu(small, "population P=3, catch 10x10, tiny net, rainbow")
     return total
 
 
@@ -807,13 +983,19 @@ def _transaction_costs(dev, runs: int = 50) -> None:
         f"{infer8_ms:.3f} ms at batch 8")
 
 
+def _fleet_spec(**schedule):
+    """rainbow_fleet.json as written (a 4-seed population), its schedule
+    cut by ``schedule``."""
+    spec = _spec_file("rainbow_fleet")
+    return dataclasses.replace(spec, schedule=dataclasses.replace(
+        spec.schedule, **schedule))
+
+
 def _fleet_replica(**schedule):
     """rainbow_fleet.json for one replica (mode concurrent, seeds 1),
     its schedule cut by ``schedule``."""
-    spec = dataclasses.replace(_spec_file("rainbow_fleet"),
-                               mode="concurrent", seeds=1)
-    return dataclasses.replace(spec, schedule=dataclasses.replace(
-        spec.schedule, **schedule))
+    return dataclasses.replace(_fleet_spec(**schedule), mode="concurrent",
+                               seeds=1)
 
 
 def _resume_round_trip(spec, label: str, dev, against_cpu: bool = False):
@@ -868,52 +1050,108 @@ def phase_resume(dev):
     for name in ("segment_tree", "categorical_projection", "tree_build"):
         check(launches[name] > 0, f"{name} never launched in the resumed "
               "rainbow cycle")
+    launches = _resume_round_trip(_fleet_spec(**cut), "rainbow_fleet "
+                                  "population P=4 (catch, rainbow)", dev)
+    updates = RESUME_STEPS // _fleet_spec().algo.train_period
+    for name in ("segment_tree", "categorical_projection"):
+        check(launches[name] == updates, f"{name} launched "
+              f"{launches[name]} times in the resumed P=4 cycle, expected "
+              f"{updates}")
     base = _spec_file("baseline_catch")
     _resume_round_trip(dataclasses.replace(base, schedule=ScheduleSpec(
         **{**dataclasses.asdict(base.schedule), **cut})),
         "baseline_catch (double)", dev)
 
 
+def _rl_train_start(*args):
+    """Start ``python -m repro_torch.launch.rl_train`` with ``args`` in a
+    process of its own; ``_rl_train_wait`` ends it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.rl_train", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+    return proc, args, time.perf_counter()
+
+
+def _rl_train_wait(started, expect: int = 0) -> str:
+    """Wait for a process of ``_rl_train_start`` (killed after 300 s);
+    returns its output (stdout, then stderr)."""
+    proc, args, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = stdout + stderr
+    check(proc.returncode == expect,
+          f"rl_train {' '.join(args)} exited {proc.returncode}, expected "
+          f"{expect}:\n{out[-3000:]}")
+    say(f"launcher rl_train {' '.join(a for a in args if '/' not in a)}: "
+        f"exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _rl_train(*args, expect: int = 0) -> str:
     """``python -m repro_torch.launch.rl_train`` with ``args`` in a process
     of its own; returns its output (stdout, then stderr)."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.rl_train",
-                          *args], capture_output=True, text=True, env=env,
-                         cwd=ROOT, timeout=300)
-    out = run.stdout + run.stderr
-    check(run.returncode == expect,
-          f"rl_train {' '.join(args)} exited {run.returncode}, expected "
-          f"{expect}:\n{out[-3000:]}")
-    say(f"launcher rl_train {' '.join(a for a in args if '/' not in a)}: "
-        f"exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
-    return out
+    return _rl_train_wait(_rl_train_start(*args), expect)
+
+
+def _cut_spec_file(spec, path: str) -> str:
+    """``spec`` cut as in phase_resume, its ε horizon pinned to the full
+    run's so that --cycles may grow, written to ``path``."""
+    spec = dataclasses.replace(spec, algo=dataclasses.replace(
+        spec.algo, eps_anneal_steps=60 * 256 // 2))
+    with open(path, "w") as f:
+        f.write(spec.to_json())
+    return path
 
 
 def phase_launcher(d: str) -> str:
     """The launcher end to end on the card, in processes of its own:
-    rainbow_fleet.json for one replica (cut as in phase_resume, its ε
+    rainbow_fleet.json with its 4 seeds (cut as in phase_resume, its ε
     horizon pinned to the full run's so that --cycles may grow) with
     --ckpt-dir and --metrics-jsonl for 2 cycles, then --cycles 3
-    --resume; then a changed spec refused. Returns the checkpoint dir."""
-    spec = _fleet_replica(cycle_steps=RESUME_STEPS,
-                          prepopulate=RESUME_PREPOPULATE)
-    horizon = 60 * 256 // 2
-    spec = dataclasses.replace(spec, algo=dataclasses.replace(
-        spec.algo, eps_anneal_steps=horizon))
-    path = os.path.join(d, "spec.json")
-    with open(path, "w") as f:
-        f.write(spec.to_json())
+    --resume (4 metrics rows a cycle); then a changed spec refused.
+    Beside the fleet's first call, in a process of its own, one replica
+    (mode concurrent: the launcher's single-carry branch) for 2 cycles
+    with a checkpoint, one metrics row a cycle. Returns the fleet's
+    checkpoint dir."""
+    cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
+    one_ck = os.path.join(d, "replica")
+    one_jsonl = os.path.join(one_ck, "m.jsonl")
+    single = _rl_train_start(
+        "--spec", _cut_spec_file(_fleet_replica(**cut),
+                                 os.path.join(d, "replica.json")),
+        "--ckpt-dir", one_ck, "--metrics-jsonl", one_jsonl, "--cycles", "2")
     ck = os.path.join(d, "run")
     jsonl = os.path.join(ck, "m.jsonl")
-    common = ["--spec", path, "--ckpt-dir", ck, "--metrics-jsonl", jsonl]
-    _rl_train(*common, "--cycles", "2")
+    common = ["--spec", _cut_spec_file(_fleet_spec(**cut),
+                                       os.path.join(d, "spec.json")),
+              "--ckpt-dir", ck, "--metrics-jsonl", jsonl]
+    try:
+        _rl_train(*common, "--cycles", "2")
+    finally:
+        _rl_train_wait(single)
+    with open(one_jsonl) as f:
+        rows = [json.loads(ln) for ln in f]
+    check([(x["cycle"], x["seed"], x["mode"]) for x in rows]
+          == [(1, 0, "concurrent"), (2, 0, "concurrent")]
+          and os.path.exists(os.path.join(one_ck, "step_00000002.npz")),
+          f"one replica: metrics rows {rows}, checkpoints "
+          f"{sorted(os.listdir(one_ck))}; expected one row a cycle and "
+          "step 2's checkpoint")
     out = _rl_train(*common, "--cycles", "3", "--resume")
     check(f"resumed {ck} at cycle 2" in out, f"no resume line in:\n{out}")
     with open(jsonl) as f:
-        cycles = [json.loads(ln)["cycle"] for ln in f]
-    check(cycles == [1, 2, 3], f"metrics rows for cycles {cycles}")
+        rows = [json.loads(ln) for ln in f]
+    cycles = [x["cycle"] for x in rows]
+    check(cycles == [c for c in (1, 2, 3) for _ in range(4)]
+          and [x["seed"] for x in rows] == [0, 1, 2, 3] * 3,
+          f"metrics rows for (cycle, seed) "
+          f"{[(x['cycle'], x['seed']) for x in rows]}, expected 4 a cycle")
     # the refusal comes before any init: in this process
     from repro_torch.launch import rl_train
     err = io.StringIO()
@@ -922,8 +1160,9 @@ def phase_launcher(d: str) -> str:
                             "4"])
     check(rc == 2 and "envs: checkpoint=8, requested=4" in err.getvalue(),
           f"rl_train with a changed spec exited {rc}:\n{err.getvalue()}")
-    say(f"launcher: resumed at cycle 2, metrics rows for cycles {cycles}, "
-        "a changed spec refused with its field diff")
+    say(f"launcher: one replica (concurrent) 2 cycles, a metrics row and a "
+        f"checkpoint each; 4 replicas, resumed at cycle 2, metrics rows for "
+        f"cycles {cycles}, a changed spec refused with its field diff")
     return ck
 
 
@@ -1040,6 +1279,47 @@ def _serve_checks(loaded) -> None:
         "requests shuffled among 200 in buckets of 100 give the same actions")
 
 
+def _serve_replica(ckpt_dir: str, r: int, dev) -> None:
+    """load_policy serves replica r of the launcher's population
+    checkpoint: replica r's parameters, and served actions equal to
+    policy_step on them, bitwise."""
+    from repro_torch import rng
+    from repro_torch.api.serve import ServeSpec, load_policy, make_server
+    from repro_torch.api.trainers import build_trainer
+    from repro_torch.checkpoint import restore_latest
+    from repro_torch.core.policy import policy_step
+    from repro_torch.envs.preprocess import init_obs_stack, push_frame
+    loaded = load_policy(ckpt_dir, replica=r, device="cuda")
+    trainer = build_trainer(loaded.spec, device="cuda")
+    carry = restore_latest(ckpt_dir, trainer.init_template(), device=dev)[1]
+    own = {k: v[r] for k, v in carry.params.items()}
+    check(all(torch.equal(loaded.params[k], own[k]) for k in own),
+          f"load_policy replica {r}: parameters differ from the checkpoint's")
+    n = 64
+    frames = torch.randint(0, 256, (n,) + loaded.pipe.shape,
+                           generator=torch.Generator().manual_seed(r),
+                           dtype=torch.uint8).numpy()
+    serve = ServeSpec(policy="egreedy", seed=3)
+    server = make_server(loaded, serve)
+    server.submit_many(range(n), frames, [True] * n)
+    got = server.flush()
+    stacks = push_frame(init_obs_stack(n, loaded.pipe, loaded.frame_stack,
+                                       "cuda"),
+                        torch.from_numpy(frames).cuda())
+    base = rng.PRNGKey(serve.seed, device="cuda")
+    ids = torch.arange(n, device="cuda")
+    keys = rng.fold_in(rng.fold_in(base, ids), torch.zeros_like(ids))
+    with torch.no_grad():
+        want = policy_step(loaded.q_forward, own, stacks, serve.eps,
+                           keys).cpu().tolist()
+    check([got[i] for i in range(n)] == want,
+          f"serve replica {r}: served actions differ from policy_step on "
+          "its parameters")
+    say(f"serve replica {r} of the {loaded.spec.seeds}-replica catch "
+        f"checkpoint: its parameters, and {n} served actions equal to "
+        "policy_step on them, bitwise")
+
+
 def phase_policy_serving(dev, catch_dir: str):
     """Serving on the card at full width: a checkpoint of dqn_nature84.json
     with rainbow (pong 84x84x4, the Nature CNN, a 16384-slot replay; init
@@ -1087,7 +1367,8 @@ def phase_policy_serving(dev, catch_dir: str):
                     profile=policy != "greedy")
     _serve_checks(loaded)
     catch = load_policy(catch_dir, device="cuda")
-    _serve_load(catch, "egreedy", 256, "catch (rainbow_fleet replica)")
+    _serve_load(catch, "egreedy", 256, "catch (rainbow_fleet replica 0)")
+    _serve_replica(catch_dir, 2, dev)
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         rc = serve_policy.main(["--ckpt-dir", catch_dir, "--clients", "256",
@@ -1688,6 +1969,35 @@ def profile_classes(label: str, fn, steps: int = 1) -> None:
 
 
 
+def launch_count(label: str, fn) -> dict:
+    """Kernel launches, device busy time and wall time of ``fn``, from a
+    torch.profiler capture of CUDA activity alone, read from the raw
+    events (what ``profile_classes`` reports without its CPU operator
+    events and their parsing, ~7x faster at 200k launches)."""
+    launch = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n_launch, busy_ns = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+        elif e.name() in launch:
+            n_launch += 1
+    busy_ms = busy_ns / 1e6
+    check(n_launch > 0 and busy_ms <= wall_ms,
+          f"{label}: {n_launch} launches, device busy {busy_ms:.1f} ms in "
+          f"{wall_ms:.1f} ms")
+    say(f"launches {label} (profiled, CUDA activity only; the profiler "
+        f"slows the host): {n_launch} launches, device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms wall ({100 * busy_ms / wall_ms:.2f}%)")
+    return {"launches": n_launch, "busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
 def _serve_args(*extra):
     from repro_torch.launch import serve
     return serve.parse_args(["--arch", SERVE_ARCH, *extra])
@@ -1928,7 +2238,7 @@ def main() -> int:
     say(smi.stdout.strip().splitlines()[0])          # name, power limit
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = configure("cuda")
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     reports = build.build_all()
     say(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)}")
     for name, text in reports.items():
@@ -1944,36 +2254,45 @@ def main() -> int:
         for (code, fn), n in sorted(notes.items()):
             say(f"  {name}: {n} ptxas notes {code} in instance {fn}")
 
-    errs = phase_parity(dev)
-    errs.update(phase_llm_parity(dev))
-    errs.update(phase_scan_parity(dev))
-    dqn_times, floor_ms = phase_times(dev)
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    errs = timed("3 (DQN kernel parity)", phase_parity, dev)
+    errs.update(timed("3 (LLM kernel parity)", phase_llm_parity, dev))
+    errs.update(timed("3 (scan parity)", phase_scan_parity, dev))
+    dqn_times, floor_ms = timed("4 (DQN kernel times)", phase_times, dev)
     times = {name: (k_ms, p_ms, l_ms, nbytes, nops, PEAK_F32_PER_S)
              for name, (k_ms, p_ms, l_ms, nbytes, nops) in dqn_times.items()}
-    times.update({name: t[:6] for name, t in phase_llm_times(dev).items()
+    times.update({name: t[:6] for name, t in
+                  timed("4 (LLM kernel times)", phase_llm_times, dev).items()
                   if name in kernel_table()})
-    times.update(phase_scan_times(dev))
-    trainer, carry, launches = phase_main_path(dev)
-    phase_profile(trainer.spec, carry)
-    phase_against_cpu()
-    phase_determinism(trainer, carry)
+    times.update(timed("4 (scan times)", phase_scan_times, dev))
+    trainer, carry, launches = timed("5 (main path)", phase_main_path, dev)
+    timed("5 (profile)", phase_profile, trainer.spec, carry)
+    timed("6 (against the CPU)", phase_against_cpu)
+    timed("7 (determinism)", phase_determinism, trainer, carry)
     del trainer, carry
-    serve_launches = phase_serve(dev)
+    serve_launches = timed("8 (serve)", phase_serve, dev)
     for name in ("rmsnorm", "flash_attention", "decode_attention"):
         launches[name] = serve_launches[name]
-    phase_serve_against_cpu()
+    timed("9 (serve against the CPU)", phase_serve_against_cpu)
     for arch, name in zip(RECURRENT_ARCHS, ("ssm_scan", "slstm_scan")):
-        launches[name] = phase_recurrent_serve(arch, dev)[name]
-        phase_recurrent_against_cpu(arch)
+        launches[name] = timed(f"10 ({arch})", phase_recurrent_serve, arch,
+                               dev)[name]
+        timed(f"11 ({arch} against the CPU)", phase_recurrent_against_cpu,
+              arch)
     # the catch phases come after the serve phases: each stream they use
     # keeps card memory (below), which would count in the serve peaks
     t0 = time.perf_counter()
     held = torch.cuda.memory_allocated()
-    phase_sequential(dev)
-    fleet = phase_fleet(dev)
+    timed("12 (sequential modes)", phase_sequential, dev)
+    fleet = timed("13 (population fleet)", phase_fleet, dev)
     for name in ("segment_tree", "categorical_projection", "tree_build"):
         check(fleet[name] > 0, f"{name} never launched on the catch fleet")
-    phase_table1(dev)
+    timed("14 (table1)", phase_table1, dev)
     after = torch.cuda.memory_allocated()
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     if clear is not None:
@@ -1984,9 +2303,10 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB with cuBLAS's "
         "per-stream workspaces cleared")
     t0 = time.perf_counter()
-    phase_resume(dev)
+    timed("15 (resume)", phase_resume, dev)
     with tempfile.TemporaryDirectory() as d:
-        phase_policy_serving(dev, phase_launcher(d))
+        catch_dir = timed("16 (launcher)", phase_launcher, d)
+        timed("17 (policy serving)", phase_policy_serving, dev, catch_dir)
     say(f"checkpoint and serving phases (resume, launcher, serving): "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2005,6 +2325,7 @@ def main() -> int:
             "library_ms": l_ms})
         if name in LATENCY_BOUND:
             kernels[-1]["floor_ms"] = floor_ms
+    say(f"total wall time: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

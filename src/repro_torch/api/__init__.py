@@ -1,7 +1,8 @@
 """The experiment API of the port, as ``repro.api`` exports it: the
 declarative ``ExperimentSpec``, the trainer registry, the resume guard
 and run-spec storage, and policy serving (a server is a spec plus a
-carry). Population mode and sweeps are ROADMAP.md queue 1 item 9.
+carry). Every execution mode runs, population (the default) included;
+sweeps are ROADMAP.md queue 1 item 9.
 
     from repro_torch.api import ExperimentSpec, build_trainer
 

@@ -45,6 +45,7 @@ import torch
 from repro_torch import rng
 from repro_torch.api.spec import ExperimentSpec, load_run_spec
 from repro_torch.core.policy import policy_step
+from repro_torch.core.population import with_replicas
 from repro_torch.envs.preprocess import ObsPipeline, push_frame
 
 __all__ = ["POLICIES", "ServeSpec", "PolicyServer", "LoadedPolicy",
@@ -324,18 +325,6 @@ class LoadedPolicy:
     skipped: List[str]            # corrupt checkpoints passed over
 
 
-def _with_replicas(template: Any, P: int) -> Any:
-    """A concurrent carry's template with a leading replica axis of P on
-    every leaf: the population carry's layout."""
-    if isinstance(template, dict):
-        return {k: _with_replicas(v, P) for k, v in template.items()}
-    if isinstance(template, tuple):
-        vals = [_with_replicas(v, P) for v in template]
-        return (type(template)(*vals) if hasattr(template, "_fields")
-                else tuple(vals))
-    return template.new_empty((P,) + tuple(template.shape))
-
-
 def load_policy(ckpt_dir: str, spec: Optional[ExperimentSpec] = None,
                 step: Optional[int] = None, replica: int = 0,
                 device: str = "cuda") -> LoadedPolicy:
@@ -345,7 +334,7 @@ def load_policy(ckpt_dir: str, spec: Optional[ExperimentSpec] = None,
     The spec is the dir's ``spec.json`` unless given; the carry is
     ``step`` or the newest *restorable* step (a torn checkpoint is
     skipped, its path recorded in ``LoadedPolicy.skipped``). A
-    population checkpoint (the JAX package's ``population`` mode: the
+    population checkpoint (either package's ``population`` mode: the
     concurrent carry with a leading replica axis) serves replica
     ``replica``."""
     from repro_torch.api.trainers import _Components, build_trainer
@@ -365,7 +354,7 @@ def load_policy(ckpt_dir: str, spec: Optional[ExperimentSpec] = None,
         if not 0 <= replica < spec.seeds:
             raise ValueError(f"replica {replica} out of range for a "
                              f"{spec.seeds}-replica checkpoint")
-        template = _with_replicas(template, spec.seeds)
+        template = with_replicas(template, spec.seeds)
     # the carry is read on the host; only the parameters go to the device
     skipped: List[str] = []
     if step is None:

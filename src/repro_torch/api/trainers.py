@@ -9,7 +9,8 @@
 Modes register in ``TRAINERS`` through ``register_trainer``, and
 ``build_trainer`` dispatches on ``spec.mode``. As in the reference,
 metrics, eval returns and ``steps`` carry a leading replica axis of
-size 1. The ported modes:
+size ``trainer.replicas``: ``spec.seeds`` in population mode, 1 in the
+single-carry modes. The modes:
 
 ==============  ============================================================
 baseline        Standard DQN (Figure 1a): act from the current θ, one
@@ -22,10 +23,11 @@ synchronized    The same sequential structure over W >= 2 streams
                 ``baseline`` at equal W.
 concurrent      Algorithm 1: the C-cycle (θ⁻ acting, a training burst on
                 the snapshot of 𝒟, the flush at the boundary).
+population      The concurrent C-cycle over ``spec.seeds`` replicas seeded
+                [seed, seed + P) on a leading replica axis, one program
+                on one card (``core.population``; the default mode).
 ==============  ============================================================
 
-``population`` (a replica axis of concurrent carries) is later work
-(ROADMAP.md, queue 1 item 9); ``build_trainer`` names it.
 ``baseline``/``synchronized`` support only loss-level variants (double,
 dueling): PER, n-step, C51 and NoisyNet need the concurrent cycle's
 stage-then-flush machinery and are refused at build time.
@@ -43,7 +45,9 @@ from repro_torch.core.baseline import BaselineCarry, make_baseline_chunk
 from repro_torch.core.concurrent import (EVAL_STREAM_TAG,
                                          make_concurrent_cycle, prepopulate,
                                          replica_key)
-from repro_torch.core.population import make_replica_init
+from repro_torch.core.population import (eval_keys, make_replica_init,
+                                         packed_seeds, population_init,
+                                         replica, seed_array, tree_map)
 from repro_torch.core.replay import replay_init
 from repro_torch.core.synchronized import evaluate, sampler_init
 from repro_torch.envs.games import make_env
@@ -54,8 +58,8 @@ from repro_torch.optim.rmsprop import centered_rmsprop
 from repro_torch.runtime import configure
 
 __all__ = ["TRAINERS", "register_trainer", "build_trainer",
-           "ConcurrentTrainer", "BaselineTrainer", "SynchronizedTrainer",
-           "EVAL_STREAM_TAG"]
+           "PopulationTrainer", "ConcurrentTrainer", "BaselineTrainer",
+           "SynchronizedTrainer", "EVAL_STREAM_TAG"]
 
 TRAINERS: Dict[str, Callable[..., object]] = {}
 
@@ -77,10 +81,6 @@ def build_trainer(spec: ExperimentSpec, device: str = "cuda"):
     ``device``: the spec is validated and the mode resolved through the
     registry."""
     spec.validate()
-    if spec.mode == "population":
-        raise NotImplementedError(
-            "mode 'population' is not ported to repro_torch yet (ROADMAP.md, "
-            "queue 1 item 9); run one seed with mode 'concurrent'")
     try:
         factory = TRAINERS[spec.mode]
     except KeyError:
@@ -115,6 +115,65 @@ class _Components:
         else:
             self.opt = adamw(lr or 1e-3, weight_decay=0.0)
         self.q_init = lambda key: q_init(ncfg, self.env.n_actions, key)
+
+
+@register_trainer("population")
+class PopulationTrainer:
+    """``spec.seeds`` replicas of the concurrent C-cycle as one program on
+    ``device``: the carry has a leading replica axis P on every leaf,
+    and ``cycle``, ``eval`` and ``steps`` give (P,) values. Replica r
+    follows the standalone run with seed ``seeds[r]`` (its integers
+    exactly, its floats to rounding; ``core.population``)."""
+
+    def __init__(self, spec: ExperimentSpec, device: str = "cuda",
+                 seeds=None):
+        spec.validate()
+        if spec.mode != "population":
+            raise ValueError(
+                f"PopulationTrainer runs mode 'population', got {spec.mode!r}")
+        self.spec = spec
+        self.replicas = spec.seeds
+        self.device = configure(device)
+        self._c = c = _Components(spec)
+        # ``seeds`` is the sweep packer's hook: an explicit (possibly
+        # non-contiguous) replica-seed list replaces [seed, seed + P)
+        self.seeds = (seed_array(spec.seed, spec.seeds) if seeds is None
+                      else packed_seeds(seeds))
+        if self.seeds.shape[0] != spec.seeds:
+            raise ValueError(
+                f"packed seed list has {self.seeds.shape[0]} entries but "
+                f"spec.seeds={spec.seeds} — the fleet spec must declare "
+                "exactly the packed replica count")
+        self._init = make_replica_init(c.env, c.q_init, c.qf, c.opt, c.dcfg,
+                                       c.obs, device=self.device)
+        self.cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
+                                           obs=c.obs, q_logits=c.qlog)
+
+    def init_carry(self, key=None):
+        # the replica seeds determine every RNG stream; ``key`` is taken
+        # for the protocol's sake and must be None
+        assert key is None, "population init derives all RNG from seeds"
+        return population_init(self._init, self.seeds.tolist())
+
+    def init_template(self):
+        """The population carry's structure, shapes and dtypes as meta
+        tensors: what ``checkpoint.restore_latest`` restores into."""
+        return population_init(self._init, self.seeds.tolist(),
+                               device="meta", fill=False)
+
+    def eval(self, carry, key: torch.Tensor) -> torch.Tensor:
+        """ε=0.05 greedy returns of each replica's μ-only network, (P,)."""
+        c, sched = self._c, self.spec.schedule
+        with torch.no_grad():
+            return evaluate(c.env, c.qf, carry.params, key, c.dcfg,
+                            n_episodes=sched.eval_episodes, obs=c.obs,
+                            max_steps=c.env.max_steps + 2)
+
+    def eval_key(self, cycle_index: int) -> torch.Tensor:
+        return eval_keys(self.seeds.to(self.device), cycle_index)
+
+    def steps(self, carry) -> torch.Tensor:
+        return carry.step
 
 
 class _SingleReplicaTrainer:
@@ -182,8 +241,16 @@ class ConcurrentTrainer(_SingleReplicaTrainer):
     def _build(self, spec: ExperimentSpec, c: _Components) -> None:
         self._init = make_replica_init(c.env, c.q_init, c.qf, c.opt,
                                        c.dcfg, c.obs, device=self.device)
-        self._cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
-                                            obs=c.obs, q_logits=c.qlog)
+        cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
+                                      obs=c.obs, q_logits=c.qlog)
+
+        def one(carry):
+            # a population of one: the replica axis added and taken off
+            # here, so the carry keeps the single replica's layout
+            pop, m = cycle(tree_map(lambda t: t[None], carry))
+            return replica(pop, 0), {k: v[0] for k, v in m.items()}
+
+        self._cycle = one
 
 
 # Variant toggles that need the concurrent cycle's staging machinery
@@ -205,7 +272,7 @@ class _SequentialTrainer(_SingleReplicaTrainer):
                 f"mode {spec.mode!r} runs standard sequential DQN and "
                 f"supports only loss-level variants (double/dueling); "
                 f"variant {spec.variant.name!r} needs {', '.join(bad)} — "
-                "use mode='concurrent'")
+                "use mode='concurrent' or 'population'")
         F, W = spec.algo.train_period, spec.envs
         if F % W != 0:
             raise ValueError(
@@ -213,7 +280,7 @@ class _SequentialTrainer(_SingleReplicaTrainer):
                 f"steps over W-batched rounds, so train_period must be "
                 f"a positive multiple of envs (got train_period={F}, "
                 f"envs={W}) — raise train_period, lower envs, or use "
-                "mode='concurrent' (any F)")
+                "mode='concurrent'/'population' (any F)")
         if spec.schedule.cycle_steps % F != 0:
             raise ValueError(
                 f"mode {spec.mode!r} needs cycle_steps divisible by "

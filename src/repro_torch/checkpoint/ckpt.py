@@ -15,7 +15,11 @@ dtypes, so a checkpoint written by either package restores in the other:
   (``rng.py``); JAX, without 64-bit mode, holds no 64-bit array at all,
   and its keys are uint32. So an int64 leaf is written as uint32 (its
   values must fit) and read back widened to the template's int64. Every
-  other dtype is written as it is held.
+  other dtype is written as it is held;
+* a population carry (``core.population``) is the concurrent carry with
+  a leading replica axis on every leaf, in both packages, so it needs
+  nothing more: its template (``PopulationTrainer.init_template``)
+  gives the paths and the (P, ...) shapes.
 
 Durability contract (checkpoints are what a policy server boots from,
 not only a resume convenience):

@@ -12,6 +12,9 @@ Keys become (..., 2) int64 tensors of uint32 words; every other array
 keeps its dtype. Optimizer state crosses for both optimizers (centered
 RMSProp's moments, AdamW's moments and step), and both carries: the
 concurrent ``TrainerCarry`` and the sequential modes' ``BaselineCarry``.
+A population carry is the concurrent carry with a leading replica axis
+on every leaf, and crosses through the same functions: every conversion
+here is per leaf and keeps the leading axes.
 """
 
 from __future__ import annotations
@@ -66,7 +69,8 @@ def _i32(x: Any, device) -> torch.Tensor:
 
 def carry_from_jax(carry: Any, device="cpu") -> TrainerCarry:
     """A reference ``TrainerCarry`` (params, opt_state, replay, sampler,
-    step, seed) as the port's."""
+    step, seed) as the port's; a population's, with its leading replica
+    axis, as the port's population carry."""
     return TrainerCarry(params_from_jax(carry.params, device),
                         opt_state_from_jax(carry.opt_state, device),
                         _dict(carry.replay, device),
@@ -87,8 +91,10 @@ def baseline_carry_from_jax(carry: Any, device="cpu") -> BaselineCarry:
 
 def tree_from_jax(tree: Any, device="cpu") -> Any:
     """A nested dict (or tuple) of arrays (transformer parameters, a
-    decode cache) as the same nesting of tensors on ``device``; a cache's
-    int32 ``pos`` and bool ``ring`` become device scalars."""
+    decode cache, a carry's parts) as the same nesting of tensors on
+    ``device``, leading axes kept; a cache's int32 ``pos`` and bool
+    ``ring`` become device scalars. A NamedTuple stays a tuple of its
+    fields."""
     if isinstance(tree, Mapping):
         return {k: tree_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

@@ -11,6 +11,12 @@ Every pick of one action's row from a tensor that needs a gradient is a
 product with a one-hot mask, not a gather: the backward of a gather is a
 scatter-add, whose CUDA form is not deterministic, and the product gives
 the same values and gradients.
+
+A population's minibatch has a leading replica axis R ((R, B, ...)
+against (R, ...) parameters). Each loss is then (R,), every replica's
+mean over its own minibatch, and the update takes one gradient of their
+sum: replica r's parameters reach only its own loss, so each gets its
+own gradient.
 """
 
 from __future__ import annotations
@@ -34,18 +40,23 @@ def _with_noise(q_forward: Callable, noise_key: Optional[torch.Tensor]):
 
 
 def _pick(x: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-    """x[b, action[b]] along dim 1, as a one-hot product."""
-    classes = torch.arange(x.shape[1], device=x.device)
-    onehot = (action.long()[:, None] == classes).to(x.dtype)
-    if x.dim() == 3:
-        onehot = onehot[:, :, None]
-    return (x * onehot).sum(dim=1)
+    """x[..., b, action[..., b]] along the action axis (the one after
+    action's axes), as a one-hot product."""
+    ax = action.dim()
+    classes = torch.arange(x.shape[ax], device=x.device)
+    onehot = (action.long()[..., None] == classes).to(x.dtype)
+    if x.dim() == ax + 2:
+        onehot = onehot[..., None]
+    return (x * onehot).sum(dim=ax)
 
 
 def _take(x: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-    """x[b, action[b]] along dim 1 for a tensor without a gradient."""
-    idx = action.long().reshape((-1, 1) + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand((-1, 1) + x.shape[2:]))[:, 0]
+    """x[..., b, action[..., b]] along the action axis for a tensor
+    without a gradient."""
+    ax = action.dim()
+    idx = action.long().reshape(action.shape + (1,) * (x.dim() - ax))
+    return torch.gather(x, ax, idx.expand(action.shape + (1,)
+                                          + x.shape[ax + 1:])).squeeze(ax)
 
 
 def _detached(params):
@@ -56,7 +67,8 @@ def q_loss_variant(params, target_params, batch: Dict[str, torch.Tensor],
                    q_forward: Callable, discount: float,
                    variant: VariantConfig,
                    noise_key: Optional[torch.Tensor] = None):
-    """Variant-aware Eq. (1). Returns (scalar loss, per-sample |td|)."""
+    """Variant-aware Eq. (1). Returns (loss, per-sample |td|): the loss
+    is a scalar, or (R,) for a population's minibatch."""
     qf = _with_noise(q_forward, noise_key)
     q = qf(params, batch["obs"], 0)                              # (B, A)
     qa = _pick(q, batch["action"])
@@ -74,9 +86,9 @@ def q_loss_variant(params, target_params, batch: Dict[str, torch.Tensor],
     abs_td = torch.abs(td)
     huber = torch.where(abs_td <= 1.0, 0.5 * td * td, abs_td - 0.5)
     if "weight" in batch:
-        loss = (batch["weight"] * huber).mean()
+        loss = (batch["weight"] * huber).mean(dim=-1)
     else:
-        loss = huber.mean()
+        loss = huber.mean(dim=-1)
     return loss, abs_td.detach()
 
 
@@ -85,8 +97,8 @@ def c51_loss_variant(params, target_params, batch: Dict[str, torch.Tensor],
                      variant: VariantConfig,
                      noise_key: Optional[torch.Tensor] = None):
     """Distributional (C51) cross-entropy loss (Bellemare et al. 2017).
-    Returns (scalar loss, per-sample cross-entropy), the latter being the
-    PER priority signal."""
+    Returns (loss, per-sample cross-entropy), the latter being the PER
+    priority signal; the loss is a scalar, or (R,) for a population."""
     qf = _with_noise(q_logits, noise_key)
     logits = qf(params, batch["obs"], 0)                         # (B, A, K)
     logp_a = _pick(torch.log_softmax(logits, dim=-1), batch["action"])
@@ -107,9 +119,9 @@ def c51_loss_variant(params, target_params, batch: Dict[str, torch.Tensor],
             v_max=variant.v_max, gamma_n=disc_n)
     ce = -(m * logp_a).sum(dim=-1)                               # (B,)
     if "weight" in batch:
-        loss = (batch["weight"] * ce).mean()
+        loss = (batch["weight"] * ce).mean(dim=-1)
     else:
-        loss = ce.mean()
+        loss = ce.mean(dim=-1)
     return loss, ce.detach()
 
 
@@ -118,7 +130,8 @@ def make_update_fn(q_forward: Callable, opt, cfg: DQNConfig,
                    q_logits: Optional[Callable] = None):
     """One minibatch gradient step:
     update(params, target_params, opt_state, batch, noise_key=None)
-    -> (params', opt_state', loss, per-sample priority signal).
+    -> (params', opt_state', loss, per-sample priority signal), the loss
+    (R,) for a population.
     ``variant=None`` takes ``cfg.variant`` with the n-step discount
     neutralized (the reference's legacy contract for 1-step paths)."""
     v = variant if variant is not None else dataclasses.replace(
@@ -139,7 +152,7 @@ def make_update_fn(q_forward: Callable, opt, cfg: DQNConfig,
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         with torch.enable_grad():
             loss, td_abs = loss_fn(leaves, target_params, batch, noise_key)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
         grads = dict(zip(leaves, grads))
         updates, opt_state = opt.update(grads, opt_state, params)
         return apply_updates(params, updates), opt_state, loss.detach(), td_abs

@@ -5,6 +5,12 @@ W sampler streams step in lock-step and share ONE batched Q call per
 round. ``sync_round`` is one such step: Q call -> ε-greedy -> batched
 env step with auto-reset -> frame push. The concurrent cycle loops it
 and stacks its outputs into the staging buffer.
+
+A population's sampler has a leading replica axis: env states and the
+stack (R, W, ...), the key (R, 2). A round then makes one Q call for
+all R replicas, and the env step takes the R W streams as one flat batch
+(each stream draws only from its own key, so it is the standalone
+stream's step bit for bit).
 """
 
 from __future__ import annotations
@@ -27,16 +33,37 @@ Obs = Union[int, ObsPipeline]
 class SamplerState(NamedTuple):
     env_states: Dict[str, torch.Tensor]   # per-stream env states (leading W)
     stack: torch.Tensor                   # (W, *obs, K) current obs stack
-    key: torch.Tensor                     # (2,)
+    key: torch.Tensor                     # (2,); a population's: (R, 2)
+
+
+def _flat(x: torch.Tensor, lead: Tuple[int, ...]) -> torch.Tensor:
+    """(*lead, W, ...) stream tensors as one (prod(lead) W, ...) batch."""
+    return x.flatten(0, len(lead)) if lead else x
+
+
+def _unflat(x: torch.Tensor, lead: Tuple[int, ...], W: int) -> torch.Tensor:
+    return x.unflatten(0, lead + (W,)) if lead else x
+
+
+def _streams(spec: EnvSpec, keys: torch.Tensor, pipe: ObsPipeline,
+             frame_stack: int):
+    """Fresh streams under (*lead, W, 2) keys: their env states and
+    stacks holding the first frame."""
+    lead, W = keys.shape[:-2], keys.shape[-2]
+    env_states = {k: _unflat(v, lead, W)
+                  for k, v in spec.reset(_flat(keys, lead)).items()}
+    stack = init_obs_stack(lead + (W,), pipe, frame_stack, keys.device)
+    frame = obs_batch(pipe, spec, {k: _flat(v, lead)
+                                   for k, v in env_states.items()})
+    return env_states, push_frame(stack, _unflat(frame, lead, W))
 
 
 def sampler_init(spec: EnvSpec, cfg: DQNConfig, key: torch.Tensor,
                  obs: Obs = 84) -> SamplerState:
     pipe = as_obs(obs)
     k = rng.split(key)
-    env_states = spec.reset(rng.split(k[0], cfg.n_envs))
-    stack = init_obs_stack(cfg.n_envs, pipe, cfg.frame_stack, key.device)
-    stack = push_frame(stack, obs_batch(pipe, spec, env_states))
+    env_states, stack = _streams(spec, rng.split(k[0], cfg.n_envs), pipe,
+                                 cfg.frame_stack)
     return SamplerState(env_states, stack, k[1])
 
 
@@ -44,20 +71,26 @@ def sync_round(spec: EnvSpec, q_forward: Callable, params, s: SamplerState,
                eps: torch.Tensor, obs: Obs = 84
                ) -> Tuple[SamplerState, Dict[str, torch.Tensor]]:
     """One synchronized W-env step. Returns (state', transitions), the
-    transitions with leading dim W."""
+    transitions with leading dim W ((R, W) for a population, whose ε may
+    be (R,))."""
     pipe = as_obs(obs)
+    lead = s.key.shape[:-1]
     k = rng.split(s.key, 3)
     cur = s.stack
-    W = cur.shape[0]
-    actions = policy_step(q_forward, params, cur, eps, stream_keys(k[1], W))
-    env_states, rewards, dones = step_autoreset(spec, s.env_states, actions,
-                                                rng.split(k[2], W))
-    frame = obs_batch(pipe, spec, env_states)
+    W = cur.shape[len(lead)]
+    actions = policy_step(q_forward, params, cur, eps,
+                          stream_keys(k[..., 1, :], W))
+    env_states, rewards, dones = step_autoreset(
+        spec, {n: _flat(v, lead) for n, v in s.env_states.items()},
+        _flat(actions, lead), _flat(rng.split(k[..., 2, :], W), lead))
+    frame = _unflat(obs_batch(pipe, spec, env_states), lead, W)
+    env_states = {n: _unflat(v, lead, W) for n, v in env_states.items()}
+    rewards, dones = _unflat(rewards, lead, W), _unflat(dones, lead, W)
     next_obs = push_frame(s.stack, frame)                  # pre-reset view
     new_stack = push_frame(reset_stack_where(s.stack, dones), frame)
     transitions = {"obs": cur, "action": actions, "reward": rewards,
                    "next_obs": next_obs, "done": dones}
-    return SamplerState(env_states, new_stack, k[0]), transitions
+    return SamplerState(env_states, new_stack, k[..., 0, :]), transitions
 
 
 def nstep_aggregate(staged: Dict[str, torch.Tensor], n: int,
@@ -98,21 +131,24 @@ def evaluate(spec: EnvSpec, q_forward: Callable, params, key: torch.Tensor,
              max_steps: int = 1000) -> torch.Tensor:
     """ε = eval_eps greedy evaluation (paper §5.2): the mean return over
     the n_episodes parallel streams whose episode finished within
-    max_steps (all streams' partial mean when none finished)."""
+    max_steps (all streams' partial mean when none finished). A
+    population's (R, ...) parameters and (R, 2) keys give (R,) returns,
+    each replica's mean over its own streams."""
     pipe = as_obs(obs)
     k = rng.split(key)
-    env_states = spec.reset(rng.split(k[0], n_episodes))
-    stack = init_obs_stack(n_episodes, pipe, cfg.frame_stack, key.device)
-    stack = push_frame(stack, obs_batch(pipe, spec, env_states))
-    s = SamplerState(env_states, stack, k[1])
+    env_states, stack = _streams(spec, rng.split(k[..., 0, :], n_episodes),
+                                 pipe, cfg.frame_stack)
+    s = SamplerState(env_states, stack, k[..., 1, :])
     eps = torch.full((), cfg.eval_eps, dtype=torch.float32, device=key.device)
-    returns = torch.zeros((n_episodes,), dtype=torch.float32, device=key.device)
+    returns = torch.zeros(key.shape[:-1] + (n_episodes,), dtype=torch.float32,
+                          device=key.device)
     live = returns + 1.0
     for _ in range(max_steps):
         s, tr = sync_round(spec, q_forward, params, s, eps, pipe)
         returns = returns + tr["reward"] * live
         live = live * (1.0 - tr["done"].to(torch.float32))
     finished = 1.0 - live
-    n_finished = finished.sum()
-    finished_mean = (returns * finished).sum() / torch.clamp(n_finished, min=1.0)
-    return torch.where(n_finished > 0, finished_mean, returns.mean())
+    n_finished = finished.sum(dim=-1)
+    finished_mean = ((returns * finished).sum(dim=-1)
+                     / torch.clamp(n_finished, min=1.0))
+    return torch.where(n_finished > 0, finished_mean, returns.mean(dim=-1))

@@ -70,11 +70,13 @@ def to_frame10(grid: torch.Tensor) -> torch.Tensor:
     return (grid_to_gray(grid) * 255.0).to(torch.uint8)
 
 
-def init_obs_stack(batch: int, pipe: ObsPipeline, stack: int,
+def init_obs_stack(batch, pipe: ObsPipeline, stack: int,
                    device=None) -> torch.Tensor:
     """Zero observation stack: (B,) + pipe.shape + (K,) in pipe.dtype
-    (uint8 frames or float32 state vectors)."""
-    return torch.zeros((batch,) + pipe.shape + (stack,), dtype=pipe.dtype,
+    (uint8 frames or float32 state vectors); ``batch`` may be a tuple of
+    stream axes, (R, W) for a population."""
+    lead = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+    return torch.zeros(lead + pipe.shape + (stack,), dtype=pipe.dtype,
                        device=device)
 
 
@@ -84,8 +86,9 @@ def push_frame(stack: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
 
 
 def reset_stack_where(stack: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
-    """Zero the history of streams whose episode just ended."""
-    d = done.reshape((-1,) + (1,) * (stack.dim() - 1))
+    """Zero the history of streams whose episode just ended (done has
+    the stack's stream axes)."""
+    d = done.reshape(done.shape + (1,) * (stack.dim() - done.dim()))
     return torch.where(d, torch.zeros_like(stack), stack)
 
 

@@ -16,7 +16,9 @@ thread computes its atom's position b_j once into shared memory, then
 each output sums all K terms in increasing j; ``projection_hat`` replays
 that schedule on the CPU bit for bit. Every output element is written by
 the kernel (see the note in the source), so the output comes from
-``build.output``, without deterministic mode's NaN fill.
+``build.output``, without deterministic mode's NaN fill. The projection
+is per row, so a population's (R, B, K) targets go through one launch
+as R B rows.
 """
 
 from __future__ import annotations
@@ -70,8 +72,11 @@ def projection_hat(probs: torch.Tensor, rewards: torch.Tensor,
     v_max) - v_min) / delta, g = gamma_n (1 - d), with its float32
     operations in its order (the scalars rounded to float32 as the
     kernel receives them), then the full K-term gather
-    m_i = sum over all j, in j order, of p_j max(0, 1 - |b_j - i|)."""
-    K = probs.shape[1]
+    m_i = sum over all j, in j order, of p_j max(0, 1 - |b_j - i|).
+    Leading axes before (B, K) are rows too."""
+    lead, K = probs.shape[:-1], probs.shape[-1]
+    probs, rewards, dones = (probs.reshape(-1, K), rewards.reshape(-1),
+                             dones.reshape(-1))
     delta, db = _spacing(K, v_min, v_max)
     f32 = lambda x: torch.full((), x, dtype=torch.float32)  # noqa: E731
     lo, hi = f32(v_min), f32(v_max)
@@ -86,7 +91,7 @@ def projection_hat(probs: torch.Tensor, rewards: torch.Tensor,
     for j in range(K):
         w = torch.clamp(1.0 - torch.abs(b[:, j:j + 1] - fi), min=0.0)
         acc = acc + p[:, j:j + 1] * w
-    return acc
+    return acc.reshape(lead + (K,))
 
 
 def _lib() -> ctypes.CDLL:
@@ -102,30 +107,39 @@ def categorical_projection(probs: torch.Tensor, rewards: torch.Tensor,
                            dones: torch.Tensor, *, v_min: float, v_max: float,
                            gamma_n: float) -> torch.Tensor:
     """probs: (B, K) float32; rewards: (B,) float32; dones: (B,) bool or
-    float. Returns the (B, K) float32 projected masses. CUDA tensors go
-    through the kernel (launches counted in
+    float; or a population's (R, B, K), (R, B) and (R, B), taken as R B
+    rows. Returns the projected masses in probs' shape, float32. CUDA
+    tensors go through the kernel, one launch for all rows (counted in
     ``categorical_projection.launches``), CPU tensors through the plain
     version."""
-    d32 = dones.to(torch.float32)
+    if probs.dim() not in (2, 3):
+        raise ValueError(f"probs must be (B, K) or (R, B, K), got "
+                         f"{tuple(probs.shape)}")
+    shape, K = probs.shape, probs.shape[-1]
+    if rewards.shape != shape[:-1] or dones.shape != shape[:-1]:
+        raise ValueError(f"rewards and dones must be {tuple(shape[:-1])} "
+                         f"for probs {tuple(shape)}, got "
+                         f"{tuple(rewards.shape)} and {tuple(dones.shape)}")
+    probs = probs.reshape(-1, K)
+    rewards = rewards.reshape(-1)
+    d32 = dones.reshape(-1).to(torch.float32)
     if probs.device.type == "cpu":
-        return categorical_projection_plain(probs, rewards, d32, v_min=v_min,
-                                            v_max=v_max, gamma_n=gamma_n)
-    if probs.dim() != 2 or probs.dtype != torch.float32:
-        raise ValueError(f"probs must be (B, K) float32, got "
-                         f"{tuple(probs.shape)} {probs.dtype}")
-    B, K = probs.shape
+        return categorical_projection_plain(
+            probs, rewards, d32, v_min=v_min, v_max=v_max,
+            gamma_n=gamma_n).reshape(shape)
+    if probs.dtype != torch.float32 or rewards.dtype != torch.float32:
+        raise ValueError(f"probs and rewards must be float32, got "
+                         f"{probs.dtype} and {rewards.dtype}")
+    B = probs.shape[0]
     if not 1 <= K <= MAX_ATOMS:
         raise ValueError(f"atom count {K} outside [1, {MAX_ATOMS}]")
-    if rewards.shape != (B,) or dones.shape != (B,) \
-            or rewards.dtype != torch.float32:
-        raise ValueError("rewards and dones must be (B,), rewards float32")
     if rewards.device != probs.device or dones.device != probs.device:
         raise ValueError("probs, rewards and dones must share a device")
     delta, db = _spacing(K, v_min, v_max)
     probs = probs.contiguous()
     rewards = rewards.contiguous()
     d32 = d32.contiguous()
-    out = build.output((B, K), torch.float32, probs.device)
+    out = build.output(shape, torch.float32, probs.device)
     err = _lib().categorical_projection(
         probs.data_ptr(), rewards.data_ptr(), d32.data_ptr(), out.data_ptr(),
         B, K, v_min, v_max, gamma_n, delta, db, build.stream_of(probs))

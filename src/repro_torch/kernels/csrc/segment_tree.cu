@@ -12,7 +12,11 @@
 // plain version's two-element sums), tree[1] the total and tree[0] = 0.
 // segment_tree_rounds answers a batch of targets: for each target t, the
 // leaf whose inclusive prefix sum first exceeds t, clamped to the last
-// leaf; out is (n,) int32.
+// leaf; out is (n,) int32. Both take R trees at once, one per replica of
+// a population: (R, P) leaves build (R, 2P) trees, and (R, n) targets
+// descend (R, 2P) trees, row r in tree r. The trees lie end to end, so a
+// target or a block finds its tree at an offset of r 2P, and a call
+// makes the launches of one tree whatever R is.
 //
 // What bounds them on this card. At the DQN path's shapes (P = 16384,
 // n = 32) the descent moves about 2 KB and the build 192 KB: nanoseconds
@@ -52,7 +56,9 @@
 // P <= 2^22 takes at most two launches: P = 16384 is 8 blocks of 11
 // levels, then one block of 3. Every element is written: the launches
 // together write each level from the leaves to the root once, and the
-// block that reaches the root writes tree[0].
+// block that reaches the root writes tree[0]. With R trees a launch has
+// R times the blocks, block b on tree b / (N / S): at P = 16384 and
+// R = 16, 128 blocks then 16.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,15 +72,17 @@ constexpr int kWarpsPerBlock = 4;
 constexpr int kMaxSpan = 4096;  // 2 kMaxSpan floats of shared memory
 constexpr int kBuildThreads = 1024;
 
-__global__ void segment_tree_rounds(const float* __restrict__ tree,
+// Target i of the total R n descends tree i / n (n targets per tree).
+__global__ void segment_tree_rounds(const float* __restrict__ trees,
                                     const float* __restrict__ targets,
-                                    int32_t* __restrict__ out, int n, int P,
-                                    int depth) {
+                                    int32_t* __restrict__ out, int n,
+                                    int total, int P, int depth) {
   __shared__ float left_of[kWarpsPerBlock][kLeftNodes + 1];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x * kWarpsPerBlock + warp;
-  if (i >= n) return;  // uniform over the warp
+  if (i >= total) return;  // uniform over the warp
+  const float* tree = trees + static_cast<int64_t>(i / n) * (2 * P);
   float* s = left_of[warp];
   float t = targets[i];
   int v = 1;
@@ -111,15 +119,22 @@ __global__ void segment_tree_rounds(const float* __restrict__ tree,
   if (lane == 0) out[i] = v - P;
 }
 
-// Block b sums the span src[b S, (b + 1) S) of a level of N nodes up to
-// one node. src is the leaf masses (leaves != nullptr; copied to
-// tree[N, 2N)) or the level's nodes tree[N, 2N). Local node j of the
+// Block b of a tree sums the span src[b S, (b + 1) S) of a level of N
+// nodes up to one node. src is the leaf masses (leaves != nullptr; copied
+// to tree[N, 2N)) or the level's nodes tree[N, 2N). Local node j of the
 // heap (children 2j, 2j + 1, the span at [S, 2S)) in the level of n nodes
-// per span is tree node (N / S) n + b n + (j - n).
-__global__ void tree_levels(const float* __restrict__ leaves,
-                            float* __restrict__ tree, int N, int S) {
+// per span is tree node (N / S) n + b n + (j - n). Block blockIdx.x works
+// on tree blockIdx.x / (N / S) of the R trees of P leaves each.
+__global__ void tree_levels(const float* __restrict__ all_leaves,
+                            float* __restrict__ trees, int N, int S, int P) {
   extern __shared__ float heap[];
-  const int b = blockIdx.x;
+  const int spans = N / S;
+  const int r = blockIdx.x / spans;
+  const int b = blockIdx.x % spans;
+  float* tree = trees + static_cast<int64_t>(r) * (2 * P);
+  const float* leaves =
+      all_leaves != nullptr ? all_leaves + static_cast<int64_t>(r) * P
+                            : nullptr;
   const float* src = leaves != nullptr ? leaves : tree + N;
   float got[kMaxSpan / kBuildThreads];  // every load in flight at once
 #pragma unroll
@@ -136,7 +151,6 @@ __global__ void tree_levels(const float* __restrict__ leaves,
     }
   }
   __syncthreads();
-  const int spans = N / S;
   for (int n = S / 2; n >= 1; n /= 2) {
     for (int x = threadIdx.x; x < n; x += blockDim.x) {
       const float sum = __fadd_rn(heap[2 * (n + x)], heap[2 * (n + x) + 1]);
@@ -152,37 +166,42 @@ __global__ void noop() {}
 
 }  // namespace
 
-// tree: (2P,) float32 device pointer; targets: (n,) float32; out: (n,)
-// int32. Launches on `stream` and returns cudaGetLastError().
-extern "C" int segment_tree_sample(const void* tree, const void* targets,
-                                   void* out, int n, int P, void* stream) {
-  if (P < 1 || P > (1 << 30) || (P & (P - 1)))
+// trees: (R, 2P) float32 device pointer, the trees end to end; targets:
+// (R, n) float32 with total = R n; out: (R, n) int32. R = 1 is a single
+// (2P,) tree. Launches on `stream` and returns cudaGetLastError().
+extern "C" int segment_tree_sample(const void* trees, const void* targets,
+                                   void* out, int n, int total, int P,
+                                   void* stream) {
+  if (P < 1 || P > (1 << 30) || (P & (P - 1)) || n < 0 || total < 0
+      || (n == 0 && total > 0) || (n > 0 && total % n))
     return static_cast<int>(cudaErrorInvalidValue);
   int depth = 0;
   while ((1 << depth) < P) ++depth;
-  if (n > 0) {
-    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (total > 0) {
+    const int blocks = (total + kWarpsPerBlock - 1) / kWarpsPerBlock;
     segment_tree_rounds<<<blocks, 32 * kWarpsPerBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(tree), static_cast<const float*>(targets),
-        static_cast<int32_t*>(out), n, P, depth);
+        static_cast<const float*>(trees), static_cast<const float*>(targets),
+        static_cast<int32_t*>(out), n, total, P, depth);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the build: the N / S spans of S nodes of the level of N
-// nodes, from `leaves` ((N,) float32, the first launch) or, when leaves
-// is null, from tree[N, 2N) (a later launch); tree is (2P,) float32.
-// S is a power of two in [1, 4096] that divides N.
-extern "C" int tree_build_levels(const void* leaves, void* tree, int N, int S,
-                                 void* stream) {
+// One launch of the build over R trees of P leaves: in each tree, the
+// N / S spans of S nodes of the level of N nodes, from `leaves` ((R, P)
+// float32, the first launch, N = P) or, when leaves is null, from
+// tree[N, 2N) (a later launch); trees is (R, 2P) float32. S is a power of
+// two in [1, 4096] that divides N.
+extern "C" int tree_build_levels(const void* leaves, void* trees, int N, int S,
+                                 int R, int P, void* stream) {
   if (S < 1 || S > kMaxSpan || (S & (S - 1)) || N < S || N % S
-      || N > (1 << 30))
+      || N > P || P > (1 << 30) || R < 1
+      || static_cast<int64_t>(R) * (N / S) > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = S < kBuildThreads ? S : kBuildThreads;
-  tree_levels<<<N / S, threads, 2 * S * sizeof(float),
+  tree_levels<<<R * (N / S), threads, 2 * S * sizeof(float),
                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(leaves), static_cast<float*>(tree), N, S);
+      static_cast<const float*>(leaves), static_cast<float*>(trees), N, S, P);
   return static_cast<int>(cudaGetLastError());
 }
 

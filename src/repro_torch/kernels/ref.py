@@ -107,13 +107,14 @@ def segment_tree_sample(tree: torch.Tensor, targets: torch.Tensor) -> torch.Tens
     node i's children 2i and 2i+1, leaves at [P, 2P). ``targets``: (n,)
     float32 points on the CDF. Returns (n,) int32 leaf indices: the leaf
     whose inclusive prefix sum first exceeds the target. A target >= the
-    total lands on the last leaf."""
-    P = tree.shape[0] // 2
+    total lands on the last leaf. Leading axes are trees: (R, 2P) trees
+    answer (R, n) targets, row by row."""
+    P = tree.shape[-1] // 2
     depth = P.bit_length() - 1
     idx = torch.ones(targets.shape, dtype=torch.int64, device=targets.device)
     t = targets.to(torch.float32)
     for _ in range(depth):
-        left = tree[2 * idx]
+        left = tree.gather(-1, 2 * idx)
         go_left = t < left
         idx = torch.where(go_left, 2 * idx, 2 * idx + 1)
         t = torch.where(go_left, t, t - left)

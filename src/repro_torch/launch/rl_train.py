@@ -4,8 +4,9 @@ CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.rl_train \\
       --spec examples/specs/baseline_catch.json
+  # a population: 4 replicas of rainbow on catch, one program on the card
   PYTHONPATH=src python -m repro_torch.launch.rl_train \\
-      --spec examples/specs/rainbow_fleet.json --mode concurrent --seeds 1 \\
+      --spec examples/specs/rainbow_fleet.json [--seeds 16] \\
       [--obs-mode vector] [--device cpu]
 
   # checkpoints with resume, and per-cycle metrics as JSON lines
@@ -15,16 +16,19 @@ CPU.
 
 Flags override the spec's fields (no ``--spec``: the ExperimentSpec
 defaults); ``--print-spec`` prints the resolved spec as canonical JSON
-and exits. Modes ``baseline``, ``synchronized`` and ``concurrent`` run;
-``population`` and ``--seeds`` above 1, sweeps and traces exit 2 naming
-the ROADMAP.md item that will port them. ``--ckpt-dir`` (or the spec's
+and exits. Every mode runs: ``population`` (the default) trains
+``--seeds`` replicas seeded [--seed, --seed + P) as one program, each
+replica following the standalone ``--seeds 1`` run with its seed; the
+single-carry modes run one replica. Sweeps and traces exit 2 naming the
+ROADMAP.md item that will port them. ``--ckpt-dir`` (or the spec's
 ``checkpoint.dir``) checkpoints the whole carry every ``--ckpt-every``
 cycles and at the last one, in the JAX package's layout, with the
 resolved spec stored beside it; ``--resume`` restarts from the newest
-restorable checkpoint, bitwise equal to the uninterrupted run, and is
-refused (exit 2, with the field-level diff) when the requested spec no
-longer matches the stored one. ``--metrics-jsonl`` appends one JSON line
-per (cycle, replica). The optimizer is the spec's (AdamW by default);
+restorable checkpoint (a population's whole carry), bitwise equal to
+the uninterrupted run, and is refused (exit 2, with the field-level
+diff) when the requested spec no longer matches the stored one.
+``--metrics-jsonl`` appends one JSON line per (cycle, replica), with
+the reference's fields, from one device-to-host copy per cycle. The optimizer is the spec's (AdamW by default);
 ``--optimizer rmsprop`` (alias ``--paper-optimizer``) selects Mnih's
 centered RMSProp, and ``--optimizer`` overrides the spec either way.
 ``--dryrun`` shrinks the run to a few seconds. ``--device cuda`` (the
@@ -50,11 +54,9 @@ from repro_torch.checkpoint import (latest_step, restore_latest,
                                     save_checkpoint, trim_metrics_jsonl)
 from repro_torch.configs.dqn_nature import VARIANTS, get_variant
 
-# flag or mode -> the ROADMAP.md item (queue 1) that ports it
+# flag -> the ROADMAP.md item (queue 1) that ports it
 NOT_PORTED = {
-    "population": "item 9 (population and sweeps)",
-    "--seeds": "item 9 (population and sweeps)",
-    "--sweep": "item 9 (population and sweeps)",
+    "--sweep": "item 9 (sweeps)",
     "--trace": "item 12 (telemetry)",
 }
 
@@ -193,10 +195,6 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"invalid spec: {e}", file=sys.stderr, flush=True)
         return 2
-    if spec.mode == "population":
-        return _refuse("population")
-    if spec.seeds > 1:
-        return _refuse("--seeds")
     try:
         trainer = build_trainer(spec, device=args.device)
     except (ValueError, NotImplementedError) as e:
@@ -204,6 +202,9 @@ def main(argv=None) -> int:
         return 2
     sched, ckpt_dir = spec.schedule, spec.checkpoint.dir
     tag = f"{spec.mode}/{spec.variant.name}"
+    P = trainer.replicas
+    seeds = (trainer.seeds.tolist() if spec.mode == "population"
+             else [spec.seed])
 
     def sync():
         if trainer.device.type == "cuda":
@@ -267,16 +268,16 @@ def main(argv=None) -> int:
         if evals is not None:
             cols.append(evals)
         host = torch.stack([c.to(torch.float64) for c in cols]).cpu().tolist()
-        for r in range(trainer.replicas):
+        for r in range(P):
             row = {"cycle": i + 1, "env": spec.env, "mode": spec.mode,
-                   "variant": spec.variant.name, "seed": spec.seed + r,
+                   "variant": spec.variant.name, "seed": seeds[r],
                    "step": int(host[3][r]), "loss": host[0][r],
                    "reward": host[1][r], "episodes": host[2][r]}
             if evals is not None:
                 row["eval"] = host[4][r]
             metrics_f.write(json.dumps(row) + "\n")
 
-    env_steps = trainer.replicas * sched.cycle_steps
+    env_steps = P * sched.cycle_steps
     t0 = time.perf_counter()
     win_t, win_start = t0, start_cycle
     try:
@@ -289,11 +290,12 @@ def main(argv=None) -> int:
                 steps = int(trainer.steps(carry)[0])
                 sps = (i + 1 - start_cycle) * env_steps / max(
                     time.perf_counter() - t0, 1e-9)
-                print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} "
-                      f"eval {float(evals[0]):+.2f} "
-                      f"loss {float(m['loss'][0]):.4f} "
-                      f"eps {float(m['eps'][0]):.2f} | {sps:.0f} env-steps/s",
-                      flush=True)
+                print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} x{P} "
+                      f"eval {float(evals.mean()):+.2f} "
+                      f"[{float(evals.min()):+.2f},{float(evals.max()):+.2f}]"
+                      f" loss {float(m['loss'].mean()):.4f} "
+                      f"eps {float(m['eps'].mean()):.2f} | {sps:.0f} "
+                      "env-steps/s", flush=True)
             if metrics_f is not None:
                 emit(i, m, evals)
             boundary = ((i + 1) % spec.checkpoint.every == 0

@@ -105,12 +105,15 @@ def noisy_linear(x: torch.Tensor, w_mu: torch.Tensor, w_sigma: torch.Tensor,
                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Factorized-Gaussian noisy affine map:
     w = μ_w + σ_w ⊙ (f(ε_in) ⊗ f(ε_out)), b = μ_b + σ_b ⊙ f(ε_out).
-    ``key=None`` is the noise-free μ-only path."""
+    ``key=None`` is the noise-free μ-only path. With a leading replica
+    axis R (x (R, B, in), weights (R, in, out), biases (R, out), keys
+    (R, 2)) each replica draws its noise from its own key and the
+    products are batched."""
     if key is None:
-        return x @ w_mu + b_mu
+        return x @ w_mu + b_mu.unsqueeze(-2)
     k = rng.split(key)
-    ein = factorized_noise(k[0], w_mu.shape[0])
-    eout = factorized_noise(k[1], w_mu.shape[1])
-    w = w_mu + w_sigma * torch.outer(ein, eout)
+    ein = factorized_noise(k[..., 0, :], w_mu.shape[-2])
+    eout = factorized_noise(k[..., 1, :], w_mu.shape[-1])
+    w = w_mu + w_sigma * (ein[..., :, None] * eout[..., None, :])
     b = b_mu + b_sigma * eout
-    return x @ w + b
+    return x @ w + b.unsqueeze(-2)

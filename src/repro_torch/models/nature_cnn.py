@@ -11,6 +11,12 @@ flatten, so ``fc_w``'s rows keep the reference's order. A config with
 (B, D, K) float32 state-vector stacks instead: no convs and no /255,
 the stack flattened straight into ``fc_w``.
 
+A population's parameters have a leading replica axis R on every leaf
+and its frames a leading R before the batch: (R, B, H, W, C) in,
+(R, B, A) out. The R replicas' convs run as one grouped convolution
+(``groups=R``, the replicas' channels side by side) and their linears as
+batched products; a noise key (R, 2) gives each replica its own draws.
+
 Head families: dueling (V + A - mean A), C51 (``num_atoms > 1``:
 ``q_logits`` gives (B, A, K) logits, ``q_forward`` their expectation over
 the support) and NoisyNet (noisy post-conv linears; ``noise_key=None``
@@ -92,23 +98,38 @@ def _affine(params: Params, name: str, x: torch.Tensor, cfg: NatureCNNConfig,
         return noisy_linear(x, params[f"{name}_w"], params[f"{name}_w_sigma"],
                             params[f"{name}_b"], params[f"{name}_b_sigma"],
                             key=noise_key)
-    return x @ params[f"{name}_w"] + params[f"{name}_b"]
+    return x @ params[f"{name}_w"] + params[f"{name}_b"].unsqueeze(-2)
+
+
+def _convs(params: Params, frames: torch.Tensor,
+           cfg: NatureCNNConfig) -> torch.Tensor:
+    """(R, B, H, W, C) frames -> (R, B, flat) NHWC-flattened features.
+    The R replicas run as one grouped convolution: the input's channels
+    are the replicas' C channels side by side, each kernel (R, k, k, I,
+    O) becomes R O output filters over its own replica's I channels."""
+    R, B = frames.shape[:2]
+    scale = torch.full((), 255.0, dtype=torch.float32, device=frames.device)
+    x = (frames.to(torch.float32) / scale).permute(1, 0, 4, 2, 3)
+    x = x.reshape((B, -1) + x.shape[3:])                  # (B, R C, H, W)
+    for i, (_, k, s) in enumerate(cfg.convs):
+        w = params[f"conv{i}_w"]                          # (R, k, k, I, O)
+        w = w.permute(0, 4, 3, 1, 2).reshape((-1,) + (w.shape[3], k, k))
+        x = F.conv2d(x, w, stride=s, groups=R)
+        x = torch.relu(x + params[f"conv{i}_b"].reshape(-1)[:, None, None])
+    x = x.reshape((B, R, -1) + x.shape[2:])               # (B, R, O, h, w)
+    return x.permute(1, 0, 3, 4, 2).reshape(R, B, -1)     # NHWC flatten
 
 
 def _trunk(params: Params, frames: torch.Tensor, cfg: NatureCNNConfig,
            noise_key: Optional[torch.Tensor]) -> torch.Tensor:
     if cfg.vector_dim:
-        # (B, D, K) float32 state vectors, already in [0, 1]: no /255
-        x = frames.to(torch.float32).reshape(frames.shape[0], -1)
+        # (..., B, D, K) float32 state vectors, already in [0, 1]: no /255
+        x = frames.to(torch.float32).flatten(-2)
+    elif params["fc_w"].dim() == 3:                       # a population
+        x = _convs(params, frames, cfg)
     else:
-        scale = torch.full((), 255.0, dtype=torch.float32,
-                           device=frames.device)
-        x = (frames.to(torch.float32) / scale).permute(0, 3, 1, 2)
-        for i, (_, k, s) in enumerate(cfg.convs):
-            w = params[f"conv{i}_w"].permute(3, 2, 0, 1)       # HWIO -> OIHW
-            x = F.conv2d(x, w, stride=s)
-            x = torch.relu(x + params[f"conv{i}_b"][:, None, None])
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)     # NHWC flatten
+        x = _convs({k: v[None] for k, v in params.items()}, frames[None],
+                   cfg)[0]
     kfc = rng.fold_in(noise_key, 0) if noise_key is not None else None
     return torch.relu(_affine(params, "fc", x, cfg, kfc))
 
@@ -121,21 +142,23 @@ def _head_keys(noise_key: Optional[torch.Tensor]):
 
 def q_logits(params: Params, frames: torch.Tensor, cfg: NatureCNNConfig,
              noise_key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """frames: (B, H, W, C) uint8 -> categorical logits (B, A, K) float32."""
+    """frames: (B, H, W, C) uint8 -> categorical logits (B, A, K) float32
+    ((R, B, ...) -> (R, B, A, K) for a population)."""
     x = _trunk(params, frames, cfg, noise_key)
     K = cfg.num_atoms
     kv, ka = _head_keys(noise_key)
     if cfg.dueling:
         v = _affine(params, "val", x, cfg, kv)                 # (B, K)
-        a = _affine(params, "adv", x, cfg, ka).reshape(x.shape[0], -1, K)
-        return v[:, None, :] + a - a.mean(dim=1, keepdim=True)
-    return _affine(params, "out", x, cfg, kv).reshape(x.shape[0], -1, K)
+        a = _affine(params, "adv", x, cfg, ka).unflatten(-1, (-1, K))
+        return v.unsqueeze(-2) + a - a.mean(dim=-2, keepdim=True)
+    return _affine(params, "out", x, cfg, kv).unflatten(-1, (-1, K))
 
 
 def q_forward(params: Params, frames: torch.Tensor, cfg: NatureCNNConfig,
               noise_key: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """frames: (B, H, W, C) uint8 -> Q-values (B, n_actions) float32. C51
-    configs return the expectation of softmax(logits) over the support."""
+    """frames: (B, H, W, C) uint8 -> Q-values (B, n_actions) float32
+    ((R, B, ...) -> (R, B, A) for a population). C51 configs return the
+    expectation of softmax(logits) over the support."""
     if cfg.num_atoms > 1:
         logits = q_logits(params, frames, cfg, noise_key)
         z = support(cfg.num_atoms, cfg.v_min, cfg.v_max, device=frames.device)

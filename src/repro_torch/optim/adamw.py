@@ -11,7 +11,8 @@ weight_decay=0.0)``, which keeps the default ``grad_clip=1.0``.
 
 The step counter is int32, as in the reference; ``b^t`` is taken in
 float32 on the float32 step, and every square root is correctly rounded
-(``rng.sqrt_f32``).
+(``rng.sqrt_f32``). A population's state has a (R,) step, and then the
+bias corrections, the schedule and the clipping norm are per replica.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.optim.base import Optimizer, clip_by_global_norm
+from repro_torch.optim.base import Optimizer, clip_by_global_norm, per_leaf
 from repro_torch.rng import sqrt_f32
 
 
@@ -41,16 +42,20 @@ def adamw(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
         lr = learning_rate(step) if callable(learning_rate) else learning_rate
         g32 = {k: g.to(torch.float32) for k, g in grads.items()}
         if grad_clip is not None:
-            g32, _ = clip_by_global_norm(g32, grad_clip)
+            g32, _ = clip_by_global_norm(g32, grad_clip, step.dim())
         m = {k: b1 * state["m"][k] + (1 - b1) * g for k, g in g32.items()}
         v = {k: b2 * state["v"][k] + (1 - b2) * g * g
              for k, g in g32.items()}
         t = step.to(torch.float32)
         bc1 = 1 - torch.pow(torch.full_like(t, b1), t)
         bc2 = 1 - torch.pow(torch.full_like(t, b2), t)
+
+        def at(x, k):   # a per-replica scalar against leaf k
+            return per_leaf(x, m[k]) if isinstance(x, torch.Tensor) else x
         updates = {
-            k: -lr * ((m[k] / bc1) / (sqrt_f32(v[k] / bc2) + eps)
-                      + weight_decay * params[k].to(torch.float32))
+            k: -at(lr, k) * ((m[k] / at(bc1, k))
+                             / (sqrt_f32(v[k] / at(bc2, k)) + eps)
+                             + weight_decay * params[k].to(torch.float32))
             for k in g32}
         return updates, {"m": m, "v": v, "step": step}
 

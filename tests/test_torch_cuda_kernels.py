@@ -7,7 +7,8 @@ nothing of JAX, so they run on a machine that has only PyTorch:
         tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: the suite's conftest imports jax.) The tree build
-and the segment tree are held bit for bit, the projection to atol =
+and the segment tree are held bit for bit (one tree, and R trees in the
+launches of one), the projection to atol =
 rtol = 1e-6 of its plain version and bit for bit against
 ``projection_hat``, the CPU replay of its schedule; RMSNorm, flash
 attention, decode attention, the SSD scan and the sLSTM scan to
@@ -93,6 +94,56 @@ def test_cuda_tree_build_bitwise(P):
     assert torch.equal(got, st.tree_build_plain(cuda))
     assert torch.equal(got.cpu(),
                        st.tree_build_blocked(torch.from_numpy(leaves)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 4, 16])
+@pytest.mark.parametrize("P,n", [(8, 5), (2048, 64), (16384, 32)])
+def test_cuda_replica_tree_build_and_descent_bitwise(R, P, n):
+    """R trees (a population's replicas) in the launches of one: the
+    build and the descent bitwise equal, tree by tree, to the one-tree
+    plain versions."""
+    _need_card()
+    r = np.random.default_rng(R * P)
+    leaves = r.uniform(0.0, 1.0, size=(R, P)).astype(np.float32)
+    for i in range(R):
+        leaves[i, P - (i * P) // (2 * R):] = 0.0
+    cuda = torch.from_numpy(leaves).cuda()
+    before = (st.tree_build.launches, st.segment_tree_sample.launches)
+    trees = st.tree_build(cuda)
+    targets = torch.from_numpy(
+        r.uniform(0.0, 1.05, size=(R, n)).astype(np.float32)).cuda()
+    targets = targets * trees[:, 1:2]
+    targets[:, -1] = trees[:, 1]                 # exactly each total
+    got = st.segment_tree_sample(trees, targets)
+    torch.cuda.synchronize()
+    assert (st.tree_build.launches, st.segment_tree_sample.launches) == (
+        before[0] + len(st.tree_build_plan(P)), before[1] + 1)
+    for i in range(R):
+        assert torch.equal(trees[i], st.tree_build_plain(cuda[i]))
+        assert torch.equal(got[i], st.segment_tree_sample_plain(
+            trees[i], targets[i]))
+    assert torch.equal(trees.cpu(), st.tree_build_blocked(
+        torch.from_numpy(leaves)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [4, 16])
+def test_cuda_replica_projection_one_launch(R):
+    _need_card()
+    B, K = 32, 51
+    cases = [_proj_case(R + i, B, K) for i in range(R)]
+    probs, rewards, dones = (torch.from_numpy(np.stack(a))
+                             for a in zip(*cases))
+    kw = dict(v_min=-10.0, v_max=10.0, gamma_n=0.9 ** 3)
+    before = cp.categorical_projection.launches
+    got = ops.categorical_projection(probs.cuda(), rewards.cuda(),
+                                     dones.cuda(), **kw)
+    torch.cuda.synchronize()
+    assert cp.categorical_projection.launches == before + 1
+    assert got.shape == (R, B, K)
+    assert torch.equal(got.cpu(), cp.projection_hat(probs, rewards, dones,
+                                                    **kw))
 
 
 @pytest.mark.cuda

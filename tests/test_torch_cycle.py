@@ -222,8 +222,23 @@ def test_launcher_runs_on_cpu_only_when_asked(tmp_path):
     assert "torch.cuda.is_available() is False" in no_card.stderr
 
 
+@pytest.mark.parametrize("extra,replicas", [
+    (("--mode", "population", "--seeds", "2"), 2), (("--seeds", "2"), 1)])
+def test_launcher_runs_population_and_seeds(tmp_path, capsys, extra,
+                                            replicas):
+    """``population`` runs ``--seeds`` replicas; a single-carry mode
+    runs one whatever ``--seeds`` says, as the reference's launcher."""
+    from repro_torch.launch import rl_train
+    path = tmp_path / "spec.json"
+    path.write_text(_specs("dqn")[1].to_json())
+    assert rl_train.main(["--spec", str(path), "--device", "cpu",
+                          "--cycles", "1", "--cycle-steps", "16",
+                          "--prepopulate", "32", *extra]) == 0
+    out = capsys.readouterr().out
+    assert f"steps      16 x{replicas} " in out, out
+
+
 @pytest.mark.parametrize("extra,item", [
-    (("--mode", "population"), "item 9"), (("--seeds", "4"), "item 9"),
     (("--sweep", "x.json"), "item 9"), (("--trace", "t.jsonl"), "item 12"),
     (("--compute-dtype", "bfloat16"), "item 7")])
 def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):

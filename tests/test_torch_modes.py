@@ -15,7 +15,6 @@ pixels at frame_size 10 with the ``tiny`` net and in vector mode with
   its message.
 """
 
-import dataclasses
 
 import jax
 import numpy as np
@@ -194,18 +193,25 @@ def test_refusals_match_reference(mode, over):
         jbuild(jspec)
     with pytest.raises(ValueError) as got:
         build_trainer(tspec, device="cpu")
-    # the reference also offers its population mode, which the port lacks
-    text = str(want.value).replace(
-        "mode='concurrent' or 'population'", "mode='concurrent'").replace(
-        "mode='concurrent'/'population'", "mode='concurrent'")
-    assert str(got.value) == text
+    assert str(got.value) == str(want.value)
 
 
-def test_population_is_refused_naming_its_item():
-    _, tspec = _specs("baseline", "pixels", "adamw")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_trainer(dataclasses.replace(tspec, mode="population"),
-                      device="cpu")
+def test_population_builds_through_the_registry():
+    """``mode='population'`` resolves to the population trainer, with the
+    reference's replica count and (P,) shape contract."""
+    jspec, tspec = _specs("baseline", "pixels", "adamw", variant="dqn",
+                          top=dict(mode="population", seeds=2),
+                          sched=dict(cycle_steps=16, prepopulate=32))
+    jt = jbuild(jspec)
+    tt = build_trainer(tspec, device="cpu")
+    assert type(tt).__name__ == "PopulationTrainer"
+    assert tt.replicas == jt.replicas == 2
+    carry, m = tt.cycle(tt.init_carry())
+    assert {k: tuple(v.shape) for k, v in m.items()} == {
+        "loss": (2,), "reward": (2,), "episodes": (2,), "eps": (2,)}
+    np.testing.assert_array_equal(tt.steps(carry).numpy(), [16, 16])
+    np.testing.assert_array_equal(tt.seeds.numpy(),
+                                  np.asarray(jt.seeds))
 
 
 def test_eval_key_matches_reference():

@@ -10,7 +10,10 @@ against ``repro.kernels.ref.segment_tree_sample`` (and the Pallas kernel
 in interpret mode on integer masses, where its compare-count agrees
 exactly), the projection against the plain scatter (1e-6) and the Pallas
 kernel in interpret mode (1e-5, as in ``tests/test_torch_kernels.py``).
-Inputs are made with numpy from a seed. The kernels themselves are held
+A population's R trees (the replica axis) go through the same functions:
+the batched plain versions and schedules equal, tree by tree and bit for
+bit, the one-tree calls, and the projection of (R, B, K) rows equals R
+separate calls. Inputs are made with numpy from a seed. The kernels themselves are held
 against these on a card by ``tests/test_torch_cuda_kernels.py``.
 """
 
@@ -208,3 +211,79 @@ def test_projection_hat_matches_jax(B, K, v_min, v_max, gamma_n):
         np.testing.assert_allclose(
             got, np.asarray(jops.categorical_projection(*j, interpret=True,
                                                         **kw)), **PALLAS_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the replica axis: R trees (one per replica of a population) at once
+# ---------------------------------------------------------------------------
+
+def _replica_leaves(seed, R, P):
+    """R replicas' masses, each with its own zero tail (empty at r = 0),
+    over [0, 1) floats."""
+    r = np.random.default_rng(seed)
+    leaves = r.uniform(0.0, 1.0, size=(R, P)).astype(np.float32)
+    for i in range(1, R):
+        leaves[i, P - (i * P) // (2 * R):] = 0.0
+    leaves[:, 0] = np.maximum(leaves[:, 0], 1.0)
+    return leaves
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("P", [1, 2, 8, 256, 16384])
+def test_replica_tree_build_bitwise_per_tree(R, P):
+    leaves = torch.from_numpy(_replica_leaves(R * P, R, P))
+    plain = st.tree_build_plain(leaves)
+    blocked = st.tree_build_blocked(leaves)
+    assert plain.shape == blocked.shape == (R, 2 * P)
+    assert not bool(torch.isnan(blocked).any())      # every element written
+    for r in range(R):
+        want = st.tree_build_plain(leaves[r])
+        assert torch.equal(plain[r], want), r
+        assert torch.equal(blocked[r], want), r
+    assert torch.equal(st.tree_build(leaves), plain)   # the CPU route
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("P", [1, 2, 8, 256, 16384])
+def test_replica_descent_bitwise_per_tree(R, P):
+    """(R, 2P) trees and (R, n) targets: each row as the one-tree plain
+    version and schedule give it, targets at and beyond each tree's
+    total and on its leftmost spine included."""
+    leaves = _replica_leaves(R * P + 1, R, P)
+    trees = st.tree_build_plain(torch.from_numpy(leaves))
+    rows = [_targets(R * P + 2 + r, trees[r].numpy(), 24) for r in range(R)]
+    n = min(len(t) for t in rows)
+    t = torch.from_numpy(np.stack([row[-n:] for row in rows]))
+    got = st.segment_tree_sample_plain(trees, t)
+    rounds = st.segment_tree_rounds(trees, t)
+    assert got.shape == (R, n) and got.dtype == torch.int32
+    assert torch.equal(rounds, got)
+    for r in range(R):
+        want = st.segment_tree_sample_plain(trees[r], t[r])
+        assert torch.equal(got[r], want), r
+        assert torch.equal(st.segment_tree_rounds(trees[r], t[r]), want), r
+        np.testing.assert_array_equal(
+            want.numpy(), np.asarray(jref.segment_tree_sample(
+                jnp.asarray(trees[r].numpy()), jnp.asarray(t[r].numpy()))))
+    assert torch.equal(st.segment_tree_sample(trees, t), got)   # CPU route
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+def test_replica_projection_equals_separate_calls(R):
+    B, K = 8, 51
+    cases = [_proj_case(R * 100 + r, B, K) for r in range(R)]
+    probs, rewards, dones = (torch.from_numpy(np.stack(a))
+                             for a in zip(*cases))
+    kw = dict(v_min=-10.0, v_max=10.0, gamma_n=0.9 ** 3)
+    got = cp.categorical_projection(probs, rewards, dones, **kw)
+    hat = cp.projection_hat(probs, rewards, dones, **kw)
+    assert got.shape == hat.shape == (R, B, K)
+    for r in range(R):
+        assert torch.equal(got[r], cp.categorical_projection(
+            probs[r], rewards[r], dones[r], **kw))
+        assert torch.equal(hat[r], cp.projection_hat(
+            probs[r], rewards[r], dones[r], **kw))
+    flat = cp.categorical_projection(probs.reshape(-1, K),
+                                     rewards.reshape(-1), dones.reshape(-1),
+                                     **kw)
+    assert torch.equal(got.reshape(-1, K), flat)
