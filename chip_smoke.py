@@ -30,8 +30,8 @@ Phases, each printing its own lines:
    cycle's phases;
 6. agreement with the port's CPU path (held against the JAX reference
    by tests/test_torch_cycle.py) on a small rainbow configuration;
-7. determinism: two runs of one full-size cycle from one carry are
-   bitwise equal;
+7. determinism: two runs of one cycle (C cut to PROFILED_STEPS) from
+   the full-size carry are bitwise equal;
 8. the serve path: mistral-nemo-12b at full width in bfloat16 through
    the serve launcher's own functions (batch 8, a 1024-token fused
    prefill, 64 greedy tokens), with init, prefill, decode and memory
@@ -54,8 +54,10 @@ Phases, each printing its own lines:
    with s/cycle and env-steps/s, one eval, no custom kernel launched),
    two cycles from one carry bitwise equal, and a small configuration
    of each mode against the CPU path (integers exact, floats to 1e-4);
-13. population: rainbow_fleet.json as written (mode population, 4 seeds,
-   AdamW, rainbow on catch, W=8, C=256, F=2): pixels init and 2 cycles,
+13. population: rainbow_fleet.json at its width (mode population, 4
+   seeds, AdamW, rainbow on catch, W=8, F=2, replay 16384), C cut to
+   RESUME_STEPS and prepopulate to RESUME_PREPOPULATE: pixels init and
+   2 cycles,
    vector (the mlp net) init and 1 cycle; the P=1 point, one replica as
    mode concurrent (ConcurrentTrainer, seeds 1), init and 1 cycle in
    pixels and in vector mode; one pixels cycle at P=16; each with
@@ -89,7 +91,11 @@ Phases, each printing its own lines:
    spec refused with exit 2 and its field diff (in this process: the
    refusal comes before any init); beside the fleet's first call, one
    replica (mode concurrent, the launcher's single-carry branch) for 2
-   cycles, one metrics row a cycle and a checkpoint;
+   cycles, one metrics row a cycle and a checkpoint; both first calls
+   with --trace, each trace read with the port's report (one cycle span
+   per cycle, the train span >= 90% covered by its children, env_steps
+   = P x C x cycles, the card and its power limit in the header, the
+   Chrome twin parsing), each trace's cycle steady p50 printed;
 17. policy serving at full width: a checkpoint of dqn_nature84.json with
    rainbow (pong 84x84x4, a 16384-slot replay; one short cycle), its
    save and restore timed; SERVE_CLIENTS simulated clients x SERVE_TICKS
@@ -101,8 +107,25 @@ Phases, each printing its own lines:
    and the server's parts, and one flush and one client step profiled
    (egreedy, noisy); served actions equal a direct
    policy_step on the same stacks and keys bitwise, and do not change
-   when the same requests arrive in another bucket and company.
-   Each phase prints its wall time; phases 15-17 keep their checkpoints
+   when the same requests arrive in another bucket and company; the
+   serve_policy call with --trace (one serve.flush span a tick, its
+   serve.compute spans, serve.actions = clients x ticks);
+18. sweeps: examples/specs/catch_lr_seeds_sweep.json as committed (2
+   fleets of 3: lr {1e-3, 5e-4} x seeds {0, 1, 2}; catch 10x10, the
+   small net, W=8, replay 16384 per replica, AdamW) in a copy with the
+   rainbow preset, SWEEP_CYCLES cycles of RESUME_STEPS steps and an
+   eval and checkpoint every cycle: the launcher with --sweep --trace 1
+   in a process of its own (fleets fleet000-p3 and fleet001-p3, each
+   run's result, metrics rows and trace; each fleet's s/cycle), then
+   run_sweep here interrupted after fleet001's cycle 2, its newest
+   checkpoint torn and resumed (fleet000 skipped, every run's
+   result.json and final carry bitwise the launcher's, one descent and
+   one projection launch per update for all 3 replicas, at most 2
+   tree builds a cycle, the card's memory back within 4 MB), the
+   launcher's --resume training nothing, a changed manifest refused
+   naming its field, and load_policy on each run of a fleet equal to
+   its slice of the fleet's final carry.
+   Each phase prints its wall time; phases 15-18 keep their checkpoints
    in a temporary directory they remove.
 
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
@@ -141,6 +164,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -200,6 +224,9 @@ TABLE1_STEPS = 1000
 # the checkpoint phases' cut (C and prepopulate), and the serving load:
 # simulated clients on the pong checkpoint and ticks per policy
 RESUME_STEPS, RESUME_PREPOPULATE = 32, 256
+# the sweep phase's manifest, taken as committed and cut in a copy
+SWEEP_MANIFEST = ROOT / "examples" / "specs" / "catch_lr_seeds_sweep.json"
+SWEEP_CYCLES = 3
 SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 100, 10
 
 
@@ -840,8 +867,9 @@ def _fleet_cycles(spec, label: str, cycles: int) -> dict:
 
 
 def phase_fleet(dev):
-    """rainbow_fleet.json as written (mode population, 4 seeds; AdamW;
-    rainbow on catch, W=8, C=256, F=2): pixels init and 2 cycles, vector
+    """rainbow_fleet.json at its width (mode population, 4 seeds; AdamW;
+    rainbow on catch, W=8, F=2, replay 16384), C cut to RESUME_STEPS and
+    prepopulate to RESUME_PREPOPULATE: pixels init and 2 cycles, vector
     (the mlp net) init and 1 cycle; the P=1 point, one replica as mode
     concurrent (ConcurrentTrainer, seeds 1), init and 1 cycle in pixels
     and in vector mode; one pixels cycle at P=16; s/cycle and
@@ -852,14 +880,19 @@ def phase_fleet(dev):
     from repro_torch.api.spec import AlgoSpec, ScheduleSpec
     from repro_torch.api.trainers import build_trainer
     from repro_torch.configs.dqn_nature import get_variant
-    fleet = _spec_file("rainbow_fleet")
-    check(fleet.mode == "population" and fleet.seeds == 4,
+    check(_spec_file("rainbow_fleet").mode == "population"
+          and _spec_file("rainbow_fleet").seeds == 4,
           "rainbow_fleet.json is no longer a 4-seed population")
+    # the fleet's cycles cut as the checkpoint phases cut them (its width
+    # kept): at C=256 they took ~30 s each on a slow host, and the run
+    # has to stay inside its time limit
+    cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
+    fleet = _fleet_spec(**cut)
     total, per_p = {}, {}
     for obs, cycles in (("pixels", 2), ("vector", 1)):
         run = _fleet_cycles(dataclasses.replace(fleet, obs_mode=obs),
                             f"P=4 {obs}", cycles)
-        one = _fleet_cycles(dataclasses.replace(_fleet_replica(),
+        one = _fleet_cycles(dataclasses.replace(_fleet_replica(**cut),
                                                 obs_mode=obs),
                             f"P=1 {obs} (concurrent, one replica)", 1)
         for r in (run, one):
@@ -870,7 +903,7 @@ def phase_fleet(dev):
     per_p[16] = _fleet_cycles(dataclasses.replace(fleet, seeds=16),
                               "P=16 pixels", 1)["s"]
     C = fleet.schedule.cycle_steps
-    say("fleet against P (pixels, C=256): " + ", ".join(
+    say(f"fleet against P (pixels, C={C}): " + ", ".join(
         f"P={P} {per_p[P]:.3f} s/cycle, {P * C / per_p[P]:.1f} env-steps/s"
         for P in sorted(per_p)))
     # the launches of one cut cycle at P=1 (concurrent) and P=4 (the
@@ -1109,7 +1142,39 @@ def _cut_spec_file(spec, path: str) -> str:
     return path
 
 
-def phase_launcher(d: str) -> str:
+def _check_trace(path: str, label: str, cycles: int, env_steps: int,
+                 gpu: str) -> dict:
+    """A launcher's --trace FILE, read with the port's report: one cycle
+    span per cycle run, the train span's children covering >= 90% of
+    it, the env_steps counter, the card and its power limit in the
+    header, a Chrome twin that parses. Returns the summary rows."""
+    from repro_torch.telemetry import chrome_path_for, report
+    trace = report.load_trace(path)
+    rows = {r["name"]: r for r in report.summarize(trace)}
+    n = rows.get("cycle", {}).get("count", 0)
+    cover = report.phase_coverage(trace, "train") or 0.0
+    attrs = trace["meta"].get("attrs", {})
+    check(n == cycles, f"{label} trace: {n} cycle spans, expected {cycles}")
+    check(cover >= 0.9, f"{label} trace: the train span's children cover "
+          f"{cover:.3f} of it, below 0.9")
+    check(trace["counters"].get("env_steps") == env_steps,
+          f"{label} trace: env_steps {trace['counters']}, expected "
+          f"{env_steps}")
+    check(attrs.get("gpu") == gpu, f"{label} trace: meta names "
+          f"{attrs.get('gpu')!r}, the card is {gpu!r}")
+    with open(chrome_path_for(path)) as f:
+        events = json.load(f)["traceEvents"]
+    say(f"trace {label}: {n} cycle spans, steady p50 "
+        f"{rows['cycle']['steady_p50_us'] / 1e6:.3f} s (first "
+        f"{rows['cycle']['first_us'] / 1e6:.3f} s), coverage of train "
+        f"{cover:.4f}, env_steps {trace['counters']['env_steps']:.0f}, "
+        f"{len(trace['compiles'])} compile records, meta {attrs.get('gpu')}, "
+        f"torch {attrs.get('torch')}, CUDA {attrs.get('cuda')}; Chrome twin "
+        f"{len(events)} events")
+    return rows
+
+
+def phase_launcher(d: str, gpu: str) -> str:
     """The launcher end to end on the card, in processes of its own:
     rainbow_fleet.json with its 4 seeds (cut as in phase_resume, its ε
     horizon pinned to the full run's so that --cycles may grow) with
@@ -1117,24 +1182,31 @@ def phase_launcher(d: str) -> str:
     --resume (4 metrics rows a cycle); then a changed spec refused.
     Beside the fleet's first call, in a process of its own, one replica
     (mode concurrent: the launcher's single-carry branch) for 2 cycles
-    with a checkpoint, one metrics row a cycle. Returns the fleet's
-    checkpoint dir."""
+    with a checkpoint, one metrics row a cycle. Both first calls run
+    with --trace, each trace read back (``_check_trace``). Returns the
+    fleet's checkpoint dir."""
     cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
     one_ck = os.path.join(d, "replica")
     one_jsonl = os.path.join(one_ck, "m.jsonl")
+    one_trace = os.path.join(d, "replica.trace.jsonl")
     single = _rl_train_start(
         "--spec", _cut_spec_file(_fleet_replica(**cut),
                                  os.path.join(d, "replica.json")),
-        "--ckpt-dir", one_ck, "--metrics-jsonl", one_jsonl, "--cycles", "2")
+        "--ckpt-dir", one_ck, "--metrics-jsonl", one_jsonl, "--cycles", "2",
+        "--trace", one_trace)
     ck = os.path.join(d, "run")
     jsonl = os.path.join(ck, "m.jsonl")
+    trace = os.path.join(d, "fleet.trace.jsonl")
     common = ["--spec", _cut_spec_file(_fleet_spec(**cut),
                                        os.path.join(d, "spec.json")),
               "--ckpt-dir", ck, "--metrics-jsonl", jsonl]
     try:
-        _rl_train(*common, "--cycles", "2")
+        _rl_train(*common, "--cycles", "2", "--trace", trace)
     finally:
         _rl_train_wait(single)
+    _check_trace(one_trace, "one replica (concurrent)", 2,
+                 2 * RESUME_STEPS, gpu)
+    _check_trace(trace, "4 replicas", 2, 4 * 2 * RESUME_STEPS, gpu)
     with open(one_jsonl) as f:
         rows = [json.loads(ln) for ln in f]
     check([(x["cycle"], x["seed"], x["mode"]) for x in rows]
@@ -1326,7 +1398,8 @@ def phase_policy_serving(dev, catch_dir: str):
     with a short prepopulate and one cycle cut short), save and restore
     timed; then 1024 simulated clients x SERVE_TICKS ticks under greedy,
     egreedy and noisy, and the catch checkpoint at 256 clients, through
-    the serve_policy launcher as well."""
+    the serve_policy launcher as well, with --trace: one serve.flush span
+    a tick, its serve.compute spans, serve.actions = clients x ticks."""
     from repro_torch.api.serve import load_policy
     from repro_torch.api.spec import save_run_spec
     from repro_torch.api.trainers import build_trainer
@@ -1369,14 +1442,268 @@ def phase_policy_serving(dev, catch_dir: str):
     catch = load_policy(catch_dir, device="cuda")
     _serve_load(catch, "egreedy", 256, "catch (rainbow_fleet replica 0)")
     _serve_replica(catch_dir, 2, dev)
+    from repro_torch.telemetry import report
     text = io.StringIO()
+    trace = os.path.join(os.path.dirname(catch_dir), "serve.trace.jsonl")
+    clients, ticks = 256, 10
     with contextlib.redirect_stdout(text):
-        rc = serve_policy.main(["--ckpt-dir", catch_dir, "--clients", "256",
-                                "--ticks", "10", "--warm-start", "--smoke"])
+        rc = serve_policy.main(["--ckpt-dir", catch_dir, "--clients",
+                                str(clients), "--ticks", str(ticks),
+                                "--warm-start", "--smoke", "--trace", trace])
     for line in text.getvalue().splitlines():
         say(f"serve_policy: {line}")
     check(rc == 0 and "SERVE OK" in text.getvalue(),
           f"serve_policy --smoke exited {rc}")
+    got = report.load_trace(trace)
+    rows = {r["name"]: r for r in report.summarize(got)}
+    flushes = rows.get("serve.flush", {}).get("count", 0)
+    computes = rows.get("serve.compute", {}).get("count", 0)
+    actions = got["counters"].get("serve.actions")
+    check(flushes == ticks and computes >= ticks
+          and actions == clients * ticks,
+          f"serve_policy --trace: {flushes} serve.flush spans, {computes} "
+          f"serve.compute, serve.actions {actions}; expected {ticks}, >= "
+          f"{ticks} and {clients * ticks}")
+    say(f"serve_policy --trace: {flushes} serve.flush spans (steady p50 "
+        f"{rows['serve.flush']['steady_p50_us'] / 1e3:.3f} ms), {computes} "
+        f"serve.compute (steady p50 "
+        f"{rows['serve.compute']['steady_p50_us'] / 1e3:.3f} ms), "
+        f"serve.queue_wait steady p50 "
+        f"{rows['serve.queue_wait']['steady_p50_us'] / 1e3:.3f} ms, "
+        f"serve.actions {actions:.0f}")
+
+
+def _npz_equal(a: str, b: str) -> bool:
+    import numpy as np
+    with np.load(a) as xa, np.load(b) as xb:
+        return (sorted(xa.files) == sorted(xb.files)
+                and all(np.array_equal(xa[k], xb[k]) for k in xa.files))
+
+
+def _tracer_cost(d: str, dev, cycle_s: float, n: int = 2000) -> None:
+    """What tracing adds to a launcher's cycle, in this process: the host
+    time of a span with a count (its JSON line written) and of a fence
+    with nothing queued, against NullTracer's; the launcher's cycle has
+    5 spans (cycle, eval, metrics, checkpoint, and train's share), 2
+    counts and 2 fences."""
+    from repro_torch.telemetry import JsonlSink, NullTracer, Tracer
+    x = torch.zeros(1, device=dev)
+    costs = {}
+    for name, tr in (("null", NullTracer()), ("traced", Tracer(
+            [JsonlSink(os.path.join(d, "cost.jsonl"))],
+            capture_compiles=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            with tr.span("cycle", index=i):
+                pass
+            tr.count("cycles", 1)
+        t1 = time.perf_counter()
+        for _ in range(n):
+            tr.fence(x)
+        t2 = time.perf_counter()
+        tr.close()
+        costs[name] = ((t1 - t0) / n * 1e6, (t2 - t1) / n * 1e6)
+    (span0, fence0), (span1, fence1) = costs["null"], costs["traced"]
+    added = 5 * (span1 - span0) + 2 * (fence1 - fence0)
+    say(f"tracer cost (host, mean of {n}): a span and a count "
+        f"{span1:.2f} us traced, {span0:.2f} us null; a fence with "
+        f"nothing queued {fence1:.2f} us traced, {fence0:.2f} us null; "
+        f"per launcher cycle ~{added:.1f} us, {added / (cycle_s * 1e6):.2e}"
+        f" of the traced fleet's {cycle_s:.3f} s (median, cycles 2..)")
+
+
+def phase_sweep(d: str, dev) -> None:
+    """catch_lr_seeds_sweep.json as committed (catch 10x10, the small
+    net, W=8, replay 16384 per replica, AdamW, lr {1e-3, 5e-4} x seeds
+    {0, 1, 2}: 2 packed fleets of 3), in a copy with the rainbow preset
+    (PER and C51 run), SWEEP_CYCLES cycles of RESUME_STEPS steps,
+    prepopulate RESUME_PREPOPULATE, an eval and a checkpoint every
+    cycle: (a) the launcher with --sweep --trace 1 in a process of its
+    own; (b) run_sweep here into a second root, interrupted after
+    fleet001's cycle 2, its newest checkpoint torn, resumed: fleet000
+    skipped, every run's result.json and final carry bitwise (a)'s, the
+    DQN kernels' launches counted, the card's memory back where it
+    started; (c) the launcher's --resume trains nothing; (d) a changed
+    manifest exits 2 naming its field; (e) load_policy on a run
+    directory serves the slice of its fleet's final carry."""
+    from repro_torch.api.serve import load_policy
+    from repro_torch.api.spec import ExperimentSpec
+    from repro_torch.api.sweep import SweepSpec, expand, pack, run_sweep
+    from repro_torch.api.trainers import build_packed_fleet
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs.dqn_nature import get_variant
+    from repro_torch.launch import rl_train
+    from repro_torch.telemetry import report
+    data = json.loads(SWEEP_MANIFEST.read_text())
+    data["base"]["variant"] = dataclasses.asdict(get_variant("rainbow"))
+    data["base"]["schedule"].update(
+        cycles=SWEEP_CYCLES, cycle_steps=RESUME_STEPS,
+        prepopulate=RESUME_PREPOPULATE, eval_every=1)
+    data["base"]["checkpoint"].update(every=1)
+    data["dir"] = a_root = os.path.join(d, "a")
+    manifest = os.path.join(d, "sweep.json")
+    with open(manifest, "w") as f:
+        json.dump(data, f)
+    sweep = SweepSpec.from_json(json.dumps(data))
+    runs, fleets = expand(sweep), pack(expand(sweep))
+    say(f"sweep: {len(runs)} runs in fleets "
+        f"{[(f.id, f.seeds) for f in fleets]}; rainbow, C={RESUME_STEPS}, "
+        f"prepopulate {RESUME_PREPOPULATE}, {SWEEP_CYCLES} cycles (the "
+        "manifest: dqn, C=256, prepopulate 512, 40 cycles)")
+
+    # (a) the launcher, traced
+    out = _rl_train("--sweep", manifest, "--trace", "1", "--device",
+                    dev.type)
+    check("SWEEP OK runs=6 trained=6 skipped=0" in out,
+          f"rl_train --sweep printed:\n{out[-2000:]}")
+    check(sorted(os.listdir(os.path.join(a_root, "fleets")))
+          == ["fleet000-p3", "fleet001-p3"],
+          f"fleets {os.listdir(os.path.join(a_root, 'fleets'))}")
+    for run in runs:
+        rdir = os.path.join(a_root, "runs", run.id)
+        with open(os.path.join(rdir, "metrics.jsonl")) as f:
+            cycles = [json.loads(ln)["cycle"] for ln in f]
+        check(cycles == list(range(1, SWEEP_CYCLES + 1))
+              and os.path.exists(os.path.join(rdir, "result.json"))
+              and os.path.exists(os.path.join(rdir, "trace.jsonl")),
+              f"{run.id}: metrics cycles {cycles}, files "
+              f"{sorted(os.listdir(rdir))}")
+    traced = {}
+    for fleet in fleets:
+        trace = report.load_trace(os.path.join(
+            a_root, "runs", fleet.members[0].id, "trace.jsonl"))
+        # a cycle's whole wall: its cycle, eval, metrics and checkpoint
+        traced[fleet.id] = [sum(
+            s["dur"] for s in trace["spans"] if s["depth"] == 2
+            and s["attrs"].get("index") == i) / 1e6
+            for i in range(1, SWEEP_CYCLES + 1)]
+        durs = [s["dur"] / 1e6 for s in trace["spans"]
+                if s["name"] == "cycle"]
+        evals = [s["dur"] / 1e6 for s in trace["spans"]
+                 if s["name"] == "eval"]
+        init = sum(s["dur"] for s in trace["spans"]
+                   if s["name"] == "init") / 1e6
+        say(f"sweep {fleet.id} (launcher, traced): s/cycle "
+            f"{', '.join(f'{x:.3f}' for x in durs)}; eval s "
+            f"{', '.join(f'{x:.3f}' for x in evals)}; init {init:.3f} s; "
+            f"{3 * RESUME_STEPS / statistics.median(durs):.1f} env-steps/s "
+            "over 3 replicas (median cycle)")
+
+    # (b) here: interrupted, a torn checkpoint, resumed
+    class Stop(Exception):
+        pass
+
+    stamps = {}
+
+    def bomb(fleet_id: str, cycle: int) -> None:
+        stamps[fleet_id, cycle] = time.perf_counter()
+        if fleet_id.startswith("fleet001") and cycle == 2:
+            raise Stop()
+
+    b_root = os.path.join(d, "b")
+    torch.cuda.synchronize()
+    gc.collect()               # what earlier phases left for the collector
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run_sweep(sweep, root=b_root, on_cycle=bomb, device=dev.type)
+        check(False, "run_sweep was not interrupted")
+    except Stop:
+        pass
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    fdir = os.path.join(b_root, "fleets", "fleet001-p3")
+    newest = os.path.join(fdir, "step_00000002.npz")
+    with open(newest, "r+b") as f:
+        f.truncate(57)                          # torn: a crash mid-write
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sweep(sweep, root=b_root, resume=True, device=dev.type)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = read_launches()
+    gc.collect()
+    mem2 = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    check([r["skipped"] for r in res] == [True] * 3 + [False] * 3,
+          f"resumed sweep skipped {[r['skipped'] for r in res]}")
+    final = f"step_{SWEEP_CYCLES:08d}.npz"
+    for run in runs:
+        a = os.path.join(a_root, "runs", run.id)
+        b = os.path.join(b_root, "runs", run.id)
+        with open(os.path.join(a, "result.json")) as fa, \
+                open(os.path.join(b, "result.json")) as fb:
+            check(fa.read() == fb.read(), f"{run.id}: result.json differs")
+        check(_npz_equal(os.path.join(a, final), os.path.join(b, final)),
+              f"{run.id}: the final carry differs from the launcher's")
+    # two cycles replayed (2 and 3), C/F updates each, all 3 replicas in
+    # one launch per update
+    updates = (SWEEP_CYCLES - 1) * (RESUME_STEPS
+                                    // sweep.base.algo.train_period)
+    for name in ("segment_tree", "categorical_projection"):
+        check(launches[name] == updates, f"{name} launched "
+              f"{launches[name]} times in the resumed fleet, expected "
+              f"{updates}")
+    check(0 < launches["tree_build"] <= 2 * (SWEEP_CYCLES - 1),
+          f"tree_build launched {launches['tree_build']} times")
+    # the fleets' trainers and carries are gone once run_sweep returns
+    check(mem1 - mem0 < 4e6 and mem2 - mem0 < 4e6,
+          f"card memory allocated {mem0}, {mem1} after the interrupted "
+          f"sweep, {mem2} after the resumed one (peak {peak})")
+    # fleet000's cycles 2.. (cycle, eval, metrics and checkpoint) traced
+    # in (a)'s process and untraced in this one, which has run every
+    # earlier phase: a comparison across processes, not the tracer's cost
+    fid = fleets[0].id
+    plain = [stamps[fid, i + 1] - stamps[fid, i]
+             for i in range(1, SWEEP_CYCLES)]
+    say(f"sweep {fid} s per cycle with its eval, metrics and checkpoint, "
+        f"cycles 2..{SWEEP_CYCLES}: traced (launcher's process) "
+        f"{', '.join(f'{x:.3f}' for x in traced[fid][1:])}, untraced "
+        f"(this process) {', '.join(f'{x:.3f}' for x in plain)}")
+    _tracer_cost(d, dev, statistics.median(traced[fid][1:]))
+    say(f"sweep here: interrupted after fleet001's cycle 2, "
+        f"step_00000002.npz torn, resumed in {resume_s:.1f} s: fleet000's "
+        "3 runs skipped; result.json and final carry of all 6 runs bitwise "
+        f"the launcher's (traced); launches in the resumed fleet "
+        f"{ {k: v for k, v in launches.items() if v} } ({updates} "
+        f"updates); card memory allocated {mem0 / 1e6:.3f} MB before, "
+        f"{mem1 / 1e6:.3f} after the interruption, {mem2 / 1e6:.3f} after, "
+        f"peak {peak / 1e6:.3f} MB")
+
+    # (c) resume is idempotent; (d) a changed manifest is refused
+    out = _rl_train("--sweep", manifest, "--resume", "--device", dev.type)
+    check("trained=0 skipped=6" in out, f"--resume printed:\n{out[-2000:]}")
+    data["axes"]["lr"] = [0.001, 0.0001]
+    changed = os.path.join(d, "changed.json")
+    with open(changed, "w") as f:
+        json.dump(data, f)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = rl_train.main(["--sweep", changed, "--resume", "--device",
+                            dev.type])
+    check(rc == 2 and "axes.lr" in err.getvalue(),
+          f"a changed manifest exited {rc}:\n{err.getvalue()}")
+
+    # (e) a run directory serves its replica of the fleet's final carry
+    fleet = fleets[1]
+    fdir = os.path.join(a_root, "fleets", fleet.id)
+    with open(os.path.join(fdir, "spec.json")) as f:
+        fspec = ExperimentSpec.from_json(f.read())
+    carry = restore_checkpoint(
+        fdir, SWEEP_CYCLES, build_packed_fleet(
+            fspec, list(fleet.seeds), device=dev.type).init_template(),
+        device=dev)
+    for r, member in enumerate(fleet.members):
+        loaded = load_policy(os.path.join(a_root, "runs", member.id),
+                             device=dev.type)
+        check(loaded.step == SWEEP_CYCLES
+              and all(torch.equal(v, carry.params[k][r])
+                      for k, v in loaded.params.items()),
+              f"load_policy {member.id}: not replica {r} of {fleet.id}")
+    say(f"sweep: launcher --resume trained=0 skipped=6; a changed lr axis "
+        f"refused (exit 2, axes.lr named); load_policy on each run of "
+        f"{fleet.id} equals its slice of the fleet's final carry")
 
 
 def kernel_table():
@@ -2235,7 +2562,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    say(smi.stdout.strip().splitlines()[0])          # name, power limit
+    gpu = smi.stdout.strip().splitlines()[0]
+    say(gpu)                                         # name, power limit
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = configure("cuda")
     start = t0 = time.perf_counter()
@@ -2273,7 +2601,13 @@ def main() -> int:
     trainer, carry, launches = timed("5 (main path)", phase_main_path, dev)
     timed("5 (profile)", phase_profile, trainer.spec, carry)
     timed("6 (against the CPU)", phase_against_cpu)
-    timed("7 (determinism)", phase_determinism, trainer, carry)
+    # a cycle cut to C=PROFILED_STEPS from the full-size carry: the same
+    # rounds, updates and kernels as C=512, in a tenth of the time
+    short = dataclasses.replace(trainer.spec, schedule=dataclasses.replace(
+        trainer.spec.schedule, cycle_steps=PROFILED_STEPS))
+    timed("7 (determinism)", phase_determinism,
+          type(trainer)(short, device="cuda"), carry,
+          f"C={PROFILED_STEPS}: ")
     del trainer, carry
     serve_launches = timed("8 (serve)", phase_serve, dev)
     for name in ("rmsnorm", "flash_attention", "decode_attention"):
@@ -2305,10 +2639,12 @@ def main() -> int:
     t0 = time.perf_counter()
     timed("15 (resume)", phase_resume, dev)
     with tempfile.TemporaryDirectory() as d:
-        catch_dir = timed("16 (launcher)", phase_launcher, d)
+        catch_dir = timed("16 (launcher)", phase_launcher, d, gpu)
         timed("17 (policy serving)", phase_policy_serving, dev, catch_dir)
-    say(f"checkpoint and serving phases (resume, launcher, serving): "
-        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        timed("18 (sweep)", phase_sweep, d, dev)
+    say(f"checkpoint, serving and sweep phases (resume, launcher, serving, "
+        f"sweep): {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

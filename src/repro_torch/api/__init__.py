@@ -1,8 +1,8 @@
 """The experiment API of the port, as ``repro.api`` exports it: the
-declarative ``ExperimentSpec``, the trainer registry, the resume guard
-and run-spec storage, and policy serving (a server is a spec plus a
-carry). Every execution mode runs, population (the default) included;
-sweeps are ROADMAP.md queue 1 item 9.
+declarative ``ExperimentSpec``, the ``Trainer`` protocol and its
+registry, the resume guard and run-spec storage, policy serving (a
+server is a spec plus a carry), and sweeps (a sweep is a list of specs,
+its same-except-seed runs packed into population fleets).
 
     from repro_torch.api import ExperimentSpec, build_trainer
 
@@ -18,18 +18,26 @@ from repro_torch.api.spec import (MODES, RUN_SPEC_FILENAME, AlgoSpec,
                                   ScheduleSpec, SpecCompatError,
                                   check_resume_compat, load_run_spec,
                                   save_run_spec, spec_compat_diff)
-from repro_torch.api.trainers import TRAINERS, build_trainer, register_trainer
+from repro_torch.api.sweep import (MANIFEST_FILENAME, Fleet, SweepRun,
+                                   SweepSpec, expand, pack, run_sweep,
+                                   sweep_compat_diff)
+from repro_torch.api.trainers import (TRAINERS, Trainer, build_packed_fleet,
+                                      build_trainer, register_trainer)
 
 __all__ = [
     # spec surface
     "ExperimentSpec", "ScheduleSpec", "AlgoSpec", "CheckpointSpec",
     "MetricsSpec", "MODES",
     # trainer surface
-    "TRAINERS", "register_trainer", "build_trainer",
+    "Trainer", "TRAINERS", "register_trainer", "build_trainer",
     # resume-compatibility guard
     "SpecCompatError", "spec_compat_diff", "check_resume_compat",
     "save_run_spec", "load_run_spec", "RUN_SPEC_FILENAME",
     # serving surface (policy_client holds the simulated clients)
     "ServeSpec", "PolicyServer", "LoadedPolicy", "POLICIES",
     "load_policy", "make_server",
+    # sweep surface (a sweep is a list of specs)
+    "SweepSpec", "SweepRun", "Fleet", "MANIFEST_FILENAME",
+    "expand", "pack", "run_sweep", "sweep_compat_diff",
+    "build_packed_fleet",
 ]

@@ -31,6 +31,12 @@ padding never touches real stream state.
 Policies: ``greedy`` (ε=0 argmax), ``egreedy`` (ε = ``ServeSpec.eps``,
 0.05 by default, as evaluation), ``noisy`` (NoisyNet parameter noise
 drawn once per tick, ε=0).
+
+Telemetry (``tracer=``, :mod:`repro_torch.telemetry`): each flush is a
+``serve.flush`` span; each microbatch records ``serve.queue_wait`` (the
+oldest submit to the start of compute: the latency the batching window
+adds) and ``serve.compute`` (through the card's completion); the
+``serve.actions`` counter counts the actions served.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from repro_torch.api.spec import ExperimentSpec, load_run_spec
 from repro_torch.core.policy import policy_step
 from repro_torch.core.population import with_replicas
 from repro_torch.envs.preprocess import ObsPipeline, push_frame
+from repro_torch.telemetry import NullTracer
 
 __all__ = ["POLICIES", "ServeSpec", "PolicyServer", "LoadedPolicy",
            "load_policy", "make_server"]
@@ -118,10 +125,9 @@ class PolicyServer:
                  frame_stack: int, n_actions: int,
                  serve: ServeSpec = ServeSpec(), tracer=None):
         serve.validate()
-        if tracer is not None:
-            raise NotImplementedError(
-                "serve telemetry is not ported to repro_torch yet: "
-                "ROADMAP.md, queue 1 item 12 (telemetry)")
+        # the default NullTracer keeps the request path free of clock
+        # reads and waits
+        self.tracer = tracer if tracer is not None else NullTracer()
         self.params = params
         self.q_forward = q_forward
         self.pipe = pipe
@@ -234,38 +240,50 @@ class PolicyServer:
                      if self._noisy else None)
         out: Dict[Any, int] = {}
         mb = self.serve.max_batch
-        for lo in range(0, len(queue), mb):
-            self._serve_chunk(queue[lo: lo + mb], keys, lo, noise_key, out)
+        with self.tracer.span("serve.flush", tick=self._tick,
+                              requests=len(queue)):
+            for lo in range(0, len(queue), mb):
+                self._serve_chunk(queue[lo: lo + mb], keys, lo, noise_key,
+                                  out)
+            self.tracer.count("serve.actions", len(queue))
         self._tick += 1
         return out
 
     def _serve_chunk(self, chunk, keys, lo: int, noise_key,
                      out: Dict[Any, int]) -> None:
-        """One microbatch: pad to a bucket, run it, hand actions back."""
+        """One microbatch: pad to a bucket, run it, hand actions back.
+        Telemetry: a ``serve.queue_wait`` span (oldest submit -> compute
+        start) then a ``serve.compute`` span, fenced on the card."""
         B = len(chunk)
         bucket = self._bucket_for(B)
-        obs = np.zeros((bucket,) + self.pipe.shape, self._obs_dtype)
-        # one int32 table (slot, stream id, action count, first) per row,
-        # so the request's indices cross to the device in one copy
-        meta = np.zeros((4, bucket), np.int32)
-        meta[0] = self._cap                        # pad rows: out of range
-        for i, (sid, slot, ob, fr, _t0) in enumerate(chunk):
-            obs[i] = ob
-            # integer stream ids key the RNG directly (stable across
-            # reconnects); other ids fall back to the slot
-            meta[:, i] = (slot, int(sid) if isinstance(
-                sid, (int, np.integer)) else slot, self._steps[slot], fr)
-        meta_t = torch.from_numpy(meta).to(self.device)
-        obs_t = torch.from_numpy(obs).to(self.device)
-        if keys is None:
-            kchunk = self._keys(meta_t[1], meta_t[2])
-        else:
-            kpad = np.zeros((bucket, 2), np.int64)
-            kpad[:B] = keys[lo: lo + B]
-            kchunk = torch.from_numpy(kpad).to(self.device)
-        actions = self._serve(meta_t[0].long(), B, obs_t, meta_t[3].bool(),
-                              kchunk, noise_key)
-        acts = actions[:B].cpu().numpy()           # the batch is served
+        if self.tracer.enabled and chunk:
+            self.tracer.complete("serve.queue_wait",
+                                 min(t0 for *_x, t0 in chunk),
+                                 time.perf_counter(), batch=B)
+        with self.tracer.span("serve.compute", batch=B, bucket=bucket):
+            obs = np.zeros((bucket,) + self.pipe.shape, self._obs_dtype)
+            # one int32 table (slot, stream id, action count, first) per
+            # row, so the request's indices cross to the device in one copy
+            meta = np.zeros((4, bucket), np.int32)
+            meta[0] = self._cap                    # pad rows: out of range
+            for i, (sid, slot, ob, fr, _t0) in enumerate(chunk):
+                obs[i] = ob
+                # integer stream ids key the RNG directly (stable across
+                # reconnects); other ids fall back to the slot
+                meta[:, i] = (slot, int(sid) if isinstance(
+                    sid, (int, np.integer)) else slot, self._steps[slot], fr)
+            meta_t = torch.from_numpy(meta).to(self.device)
+            obs_t = torch.from_numpy(obs).to(self.device)
+            if keys is None:
+                kchunk = self._keys(meta_t[1], meta_t[2])
+            else:
+                kpad = np.zeros((bucket, 2), np.int64)
+                kpad[:B] = keys[lo: lo + B]
+                kchunk = torch.from_numpy(kpad).to(self.device)
+            actions = self._serve(meta_t[0].long(), B, obs_t,
+                                  meta_t[3].bool(), kchunk, noise_key)
+            actions = self.tracer.fence(actions)
+            acts = actions[:B].cpu().numpy()       # the batch is served
         done_t = time.perf_counter()
         self.microbatches += 1
         for i, (sid, slot, _ob, _fr, t0) in enumerate(chunk):
@@ -376,7 +394,8 @@ def make_server(loaded: LoadedPolicy, serve: ServeSpec = ServeSpec(),
                 tracer=None) -> PolicyServer:
     """A :class:`PolicyServer` over a loaded checkpoint (the spec and the
     carry: nothing else crosses from training to serving). ``tracer``
-    takes None only: serve telemetry is ROADMAP.md queue 1 item 12."""
+    (:mod:`repro_torch.telemetry`) records queue-wait and compute spans
+    per flush; None is a :class:`NullTracer`, which costs nothing."""
     if serve.policy == "noisy" and not loaded.spec.variant.noisy:
         raise ValueError(
             f"serving policy 'noisy' needs a NoisyNet checkpoint; "

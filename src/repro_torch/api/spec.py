@@ -1,6 +1,7 @@
 """`ExperimentSpec`, one declarative run description: the port of
 ``repro.api.spec`` (parsing, validation, config derivation and run-spec
-storage; sweeps stay with ROADMAP.md queue 1 item 9). The JSON
+storage; sweeps, which expand a spec over a grid, are
+``repro_torch.api.sweep``). The JSON
 schema is the reference's, so every committed spec file parses
 unchanged. The run spec is stored beside a run's checkpoints
 (``save_run_spec``, canonical JSON byte for byte as the reference writes

@@ -35,7 +35,8 @@ stage-then-flush machinery and are refused at build time.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import (Any, Callable, Dict, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import torch
 
@@ -57,11 +58,37 @@ from repro_torch.optim.adamw import adamw
 from repro_torch.optim.rmsprop import centered_rmsprop
 from repro_torch.runtime import configure
 
-__all__ = ["TRAINERS", "register_trainer", "build_trainer",
-           "PopulationTrainer", "ConcurrentTrainer", "BaselineTrainer",
-           "SynchronizedTrainer", "EVAL_STREAM_TAG"]
+__all__ = ["Trainer", "TRAINERS", "register_trainer", "build_trainer",
+           "build_packed_fleet", "PopulationTrainer", "ConcurrentTrainer",
+           "BaselineTrainer", "SynchronizedTrainer", "EVAL_STREAM_TAG"]
 
-TRAINERS: Dict[str, Callable[..., object]] = {}
+
+@runtime_checkable
+class Trainer(Protocol):
+    """The contract every execution mode keeps (see the module doc):
+    ``cycle``'s metrics, ``eval``'s returns and ``steps`` lead with a
+    replica axis of size ``replicas``. The carry is opaque to callers:
+    checkpoint it with ``repro_torch.checkpoint`` against
+    ``init_template()``."""
+
+    spec: ExperimentSpec
+    replicas: int
+    device: torch.device
+
+    def init_carry(self) -> Any: ...
+
+    def init_template(self) -> Any: ...
+
+    def cycle(self, carry) -> Tuple[Any, Dict[str, torch.Tensor]]: ...
+
+    def eval(self, carry, key: torch.Tensor) -> torch.Tensor: ...
+
+    def eval_key(self, cycle_index: int) -> torch.Tensor: ...
+
+    def steps(self, carry) -> torch.Tensor: ...
+
+
+TRAINERS: Dict[str, Callable[..., Trainer]] = {}
 
 
 def register_trainer(mode: str):
@@ -87,6 +114,22 @@ def build_trainer(spec: ExperimentSpec, device: str = "cuda"):
         raise KeyError(f"unknown execution mode {spec.mode!r}; "
                        f"registered: {sorted(TRAINERS)}") from None
     return factory(spec, device=device)
+
+
+def build_packed_fleet(spec: ExperimentSpec, seeds: Sequence[int],
+                       device: str = "cuda") -> "PopulationTrainer":
+    """A population fleet over an explicit (possibly non-contiguous)
+    seed list: the construction path the sweep packer
+    (``repro_torch.api.sweep``) uses for runs that differ only in seed.
+    ``spec`` is the shared fleet spec with ``spec.seeds == len(seeds)``;
+    replica r follows the standalone run with seed ``seeds[r]``."""
+    spec.validate()
+    if spec.mode != "population":
+        raise ValueError(
+            f"packed fleets run in population mode (got {spec.mode!r}); "
+            "non-population sweep runs execute as singleton fleets "
+            "through build_trainer")
+    return PopulationTrainer(spec, device=device, seeds=seeds)
 
 
 class _Components:

@@ -7,6 +7,11 @@ one ``nvcc`` process per source, all started together. Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of their source so that an edited kernel is rebuilt. A missing
 ``nvcc`` or a failed build raises.
+
+Each build and each load is reported, with its duration, to the
+listeners of ``register_event_duration_secs_listener`` (the shape of
+``jax.monitoring``'s): that is how a trace of ``repro_torch.telemetry``
+shows a first cycle's build or load as ``compile`` records.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -31,6 +38,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# process-wide, like jax.monitoring's: registered once, never removed
+_duration_listeners: List[Callable[[str, float], None]] = []
+
+
+def register_event_duration_secs_listener(
+        listener: Callable[[str, float], None]) -> None:
+    """Call ``listener(event, duration_secs)`` for every kernel build
+    (``/repro_torch/kernels/nvcc/<source>``) and library load
+    (``/repro_torch/kernels/load/<source>``) from now on."""
+    _duration_listeners.append(listener)
+
+
+def record_event_duration_secs(event: str, duration_secs: float) -> None:
+    """Report one duration event to every registered listener."""
+    for listener in list(_duration_listeners):
+        listener(event, duration_secs)
 
 
 def nvcc() -> str:
@@ -60,16 +83,31 @@ def build_all() -> Dict[str, str]:
     for name in todo:
         tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
         cmd = [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        # output to a file, not a pipe: the builds are polled, and a full
+        # pipe would stall a compiler that nobody reads
+        log = tempfile.TemporaryFile(mode="w+")
+        procs[name] = (tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
     reports, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        reports[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, _target(name))
+    pending = list(procs)
+    while pending:
+        for name in list(pending):
+            tmp, log, proc, t0 = procs[name]
+            if proc.poll() is None:
+                continue
+            pending.remove(name)
+            record_event_duration_secs(f"/repro_torch/kernels/nvcc/{name}",
+                                       time.perf_counter() - t0)
+            with log:
+                log.seek(0)
+                out = reports[name] = log.read()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, _target(name))
+        if pending:
+            time.sleep(0.01)
     if failed:
         raise RuntimeError("nvcc failed to build " + "\n".join(failed))
     return reports
@@ -80,7 +118,10 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build_all()
+            t0 = time.perf_counter()
             _libs[name] = ctypes.CDLL(str(_target(name)))
+            record_event_duration_secs(f"/repro_torch/kernels/load/{name}",
+                                       time.perf_counter() - t0)
         return _libs[name]
 
 

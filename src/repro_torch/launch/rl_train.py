@@ -12,23 +12,38 @@ CPU.
   # checkpoints with resume, and per-cycle metrics as JSON lines
   PYTHONPATH=src python -m repro_torch.launch.rl_train \\
       --spec examples/specs/baseline_catch.json --ckpt-dir runs/catch \\
-      --metrics-jsonl runs/catch/metrics.jsonl [--resume]
+      --metrics-jsonl runs/catch/metrics.jsonl [--resume] \\
+      [--trace runs/catch/trace.jsonl]
+
+  # a whole sweep (base spec x axis grid) from one manifest, its
+  # same-except-seed runs packed into population fleets; --resume skips
+  # completed runs and restores partial fleets bitwise
+  PYTHONPATH=src python -m repro_torch.launch.rl_train \\
+      --sweep examples/specs/catch_lr_seeds_sweep.json [--resume] \\
+      [--ckpt-dir ROOT] [--trace 1]
 
 Flags override the spec's fields (no ``--spec``: the ExperimentSpec
 defaults); ``--print-spec`` prints the resolved spec as canonical JSON
 and exits. Every mode runs: ``population`` (the default) trains
 ``--seeds`` replicas seeded [--seed, --seed + P) as one program, each
 replica following the standalone ``--seeds 1`` run with its seed; the
-single-carry modes run one replica. Sweeps and traces exit 2 naming the
-ROADMAP.md item that will port them. ``--ckpt-dir`` (or the spec's
-``checkpoint.dir``) checkpoints the whole carry every ``--ckpt-every``
-cycles and at the last one, in the JAX package's layout, with the
-resolved spec stored beside it; ``--resume`` restarts from the newest
-restorable checkpoint (a population's whole carry), bitwise equal to
-the uninterrupted run, and is refused (exit 2, with the field-level
-diff) when the requested spec no longer matches the stored one.
-``--metrics-jsonl`` appends one JSON line per (cycle, replica), with
-the reference's fields, from one device-to-host copy per cycle. The optimizer is the spec's (AdamW by default);
+single-carry modes run one replica. ``--sweep`` runs a manifest through
+``repro_torch.api.sweep`` (``--ckpt-dir`` overrides its root; with it,
+``--spec`` is refused) and prints ``SWEEP OK runs=N trained=N
+skipped=M``. ``--trace FILE`` records the run's phases (init, train,
+cycle, eval, metrics, checkpoint) and its cycles and env-steps counters
+as JSON lines with a Perfetto twin (with ``--sweep``, any value gives
+each run a ``runs/<id>/trace.jsonl``); ``python -m
+repro_torch.launch.trace_report FILE`` summarizes it. ``--ckpt-dir``
+(or the spec's ``checkpoint.dir``) checkpoints the whole carry every
+``--ckpt-every`` cycles and at the last one, in the JAX package's
+layout, with the resolved spec stored beside it; ``--resume`` restarts
+from the newest restorable checkpoint (a population's whole carry),
+bitwise equal to the uninterrupted run, and is refused (exit 2, with
+the field-level diff) when the requested spec no longer matches the
+stored one. ``--metrics-jsonl`` appends one JSON line per (cycle,
+replica), with the reference's fields, from one device-to-host copy per
+cycle. The optimizer is the spec's (AdamW by default);
 ``--optimizer rmsprop`` (alias ``--paper-optimizer``) selects Mnih's
 centered RMSProp, and ``--optimizer`` overrides the spec either way.
 ``--dryrun`` shrinks the run to a few seconds. ``--device cuda`` (the
@@ -49,16 +64,12 @@ import torch
 from repro_torch.api.spec import (MODES, ExperimentSpec, SpecCompatError,
                                   check_resume_compat, load_run_spec,
                                   save_run_spec)
+from repro_torch.api.sweep import SweepSpec, run_sweep
 from repro_torch.api.trainers import build_trainer
 from repro_torch.checkpoint import (latest_step, restore_latest,
                                     save_checkpoint, trim_metrics_jsonl)
 from repro_torch.configs.dqn_nature import VARIANTS, get_variant
-
-# flag -> the ROADMAP.md item (queue 1) that ports it
-NOT_PORTED = {
-    "--sweep": "item 9 (sweeps)",
-    "--trace": "item 12 (telemetry)",
-}
+from repro_torch.telemetry import chrome_path_for, device_meta, make_tracer
 
 
 def parse_args(argv=None):
@@ -110,8 +121,17 @@ def parse_args(argv=None):
                          "runs float32 only)")
     ap.add_argument("--dryrun", action="store_true",
                     help="one tiny run: W=4, 2 cycles of 32 steps")
-    ap.add_argument("--sweep", default=None, metavar="FILE")
-    ap.add_argument("--trace", default=None, metavar="FILE")
+    ap.add_argument("--sweep", default=None, metavar="FILE",
+                    help="SweepSpec manifest (base spec x axis grid): "
+                         "expand, pack same-except-seed runs into "
+                         "population fleets, run them all; --ckpt-dir "
+                         "overrides the manifest's root, --resume "
+                         "continues a partial sweep")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record a phase trace: JSON lines to FILE plus a "
+                         "Perfetto twin beside it (summarize with "
+                         "launch/trace_report.py); with --sweep, any value "
+                         "gives each run runs/<id>/trace.jsonl")
     return ap.parse_args(argv)
 
 
@@ -171,17 +191,35 @@ def resolve_spec(args) -> ExperimentSpec:
     return spec
 
 
-def _refuse(what: str) -> int:
-    print(f"{what} is not ported to repro_torch yet: ROADMAP.md, queue 1 "
-          f"{NOT_PORTED[what]}", file=sys.stderr, flush=True)
-    return 2
+def run_sweep_cli(args) -> int:
+    """--sweep FILE: load the manifest and hand off to the sweep runner
+    (``repro_torch.api.sweep``). Prints one summary line; a second
+    ``--resume`` pass reports trained=0."""
+    if args.spec:
+        print("--sweep and --spec are mutually exclusive (the manifest "
+              "carries its own base spec)", file=sys.stderr, flush=True)
+        return 2
+    try:
+        with open(args.sweep) as f:
+            sweep = SweepSpec.from_json(f.read())
+        results = run_sweep(sweep, resume=args.resume,
+                            root=args.ckpt_dir or None,
+                            trace=bool(args.trace), device=args.device)
+    except (OSError, ValueError, NotImplementedError) as e:
+        # SpecCompatError is a ValueError: a changed manifest lands here
+        print(f"sweep failed: {e}", file=sys.stderr, flush=True)
+        return 2
+    trained = sum(1 for r in results if not r["skipped"])
+    skipped = len(results) - trained
+    print(f"SWEEP OK runs={len(results)} trained={trained} "
+          f"skipped={skipped}", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag in ("--sweep", "--trace"):
-        if getattr(args, flag[2:]):
-            return _refuse(flag)
+    if args.sweep:
+        return run_sweep_cli(args)
     try:
         spec = resolve_spec(args)
     except (OSError, ValueError) as e:
@@ -195,8 +233,36 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"invalid spec: {e}", file=sys.stderr, flush=True)
         return 2
+    # With --trace FILE the tracer writes JSON lines and a Perfetto twin;
+    # without it this is a counter-only tracer (nothing written) that the
+    # throughput lines read. Tracing reads the host's clock and waits for
+    # the card; it changes no tensor, so a traced run is bitwise equal
+    # to an untraced one (tests/test_torch_telemetry.py).
+    tracer = make_tracer(args.trace, meta={
+        "kind": "rl_train", "env": spec.env, "mode": spec.mode,
+        "variant": spec.variant.name, "seeds": spec.seeds,
+        "cycles": spec.schedule.cycles,
+        "cycle_steps": spec.schedule.cycle_steps,
+        **(device_meta(args.device) if args.trace else {})})
     try:
-        trainer = build_trainer(spec, device=args.device)
+        rc = _train(args, spec, tracer)
+    finally:
+        tracer.close()
+    if args.trace and rc == 0:
+        print(f"trace written: {args.trace} (+ Perfetto twin "
+              f"{chrome_path_for(args.trace)}); summarize with python -m "
+              "repro_torch.launch.trace_report", flush=True)
+    if args.dryrun and rc == 0:
+        print(f"DRYRUN OK variant={spec.variant.name}", flush=True)
+    return rc
+
+
+def _train(args, spec: ExperimentSpec, tracer) -> int:
+    """Build, restore or init, and run the spec's cycles under
+    ``tracer``'s spans; returns the exit code."""
+    try:
+        with tracer.span("init", phase="build_trainer"):
+            trainer = build_trainer(spec, device=args.device)
     except (ValueError, NotImplementedError) as e:
         print(f"invalid spec: {e}", file=sys.stderr, flush=True)
         return 2
@@ -235,8 +301,9 @@ def main(argv=None) -> int:
         # the template is the carry's structure only (meta tensors); a
         # torn checkpoint is skipped with a warning and the walk falls
         # back to the newest step that still restores
-        step, carry, skipped = restore_latest(
-            ckpt_dir, trainer.init_template(), device=trainer.device)
+        with tracer.span("init", phase="restore"):
+            step, carry, skipped = restore_latest(
+                ckpt_dir, trainer.init_template(), device=trainer.device)
         for s in skipped:
             print(f"WARNING: skipped unrestorable checkpoint {s}", flush=True)
         if carry is not None:
@@ -247,8 +314,9 @@ def main(argv=None) -> int:
                   flush=True)
     if carry is None:
         t0 = time.perf_counter()
-        carry = trainer.init_carry()
-        sync()
+        with tracer.span("init", phase="init_carry"):
+            carry = trainer.init_carry()
+            sync()
         print(f"[{tag}] {spec.env} ({spec.obs_mode}) init_carry "
               f"{time.perf_counter() - t0:.2f} s on {trainer.device}",
               flush=True)
@@ -277,45 +345,56 @@ def main(argv=None) -> int:
                 row["eval"] = host[4][r]
             metrics_f.write(json.dumps(row) + "\n")
 
-    env_steps = P * sched.cycle_steps
     t0 = time.perf_counter()
-    win_t, win_start = t0, start_cycle
+    win_t, win_counters = t0, tracer.counters
     try:
-        for i in range(start_cycle, sched.cycles):
-            carry, m = trainer.cycle(carry)
-            evals = None
-            if (i + 1) % sched.eval_every == 0 or i == sched.cycles - 1:
-                evals = trainer.eval(carry, trainer.eval_key(i))
-                sync()
-                steps = int(trainer.steps(carry)[0])
-                sps = (i + 1 - start_cycle) * env_steps / max(
-                    time.perf_counter() - t0, 1e-9)
-                print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} x{P} "
-                      f"eval {float(evals.mean()):+.2f} "
-                      f"[{float(evals.min()):+.2f},{float(evals.max()):+.2f}]"
-                      f" loss {float(m['loss'].mean()):.4f} "
-                      f"eps {float(m['eps'].mean()):.2f} | {sps:.0f} "
-                      "env-steps/s", flush=True)
-            if metrics_f is not None:
-                emit(i, m, evals)
-            boundary = ((i + 1) % spec.checkpoint.every == 0
-                        or i == sched.cycles - 1)
-            if ckpt_dir and boundary:
-                save_checkpoint(ckpt_dir, i + 1, carry)
-            if boundary:
-                # per-interval throughput: long runs stay observable
-                sync()
-                now = time.perf_counter()
-                dc, dt = i + 1 - win_start, max(now - win_t, 1e-9)
-                print(f"[throughput] cycle {i + 1:4d}: {dc / dt:.2f} "
-                      f"cycles/s, {dc * env_steps / dt:.0f} env-steps/s "
-                      f"(last {dc} cycle(s))", flush=True)
-                win_t, win_start = now, i + 1
+        with tracer.span("train", start_cycle=start_cycle,
+                         cycles=sched.cycles):
+            for i in range(start_cycle, sched.cycles):
+                with tracer.span("cycle", index=i + 1):
+                    carry, m = trainer.cycle(carry)
+                    if tracer.enabled:
+                        tracer.fence(m)
+                tracer.count("cycles", 1)
+                tracer.count("env_steps", P * sched.cycle_steps)
+                evals = None
+                if (i + 1) % sched.eval_every == 0 or i == sched.cycles - 1:
+                    with tracer.span("eval", index=i + 1):
+                        evals = trainer.eval(carry, trainer.eval_key(i))
+                        sync()
+                    steps = int(trainer.steps(carry)[0])
+                    sps = tracer.counters["env_steps"] / max(
+                        time.perf_counter() - t0, 1e-9)
+                    print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} x{P} "
+                          f"eval {float(evals.mean()):+.2f} "
+                          f"[{float(evals.min()):+.2f},"
+                          f"{float(evals.max()):+.2f}]"
+                          f" loss {float(m['loss'].mean()):.4f} "
+                          f"eps {float(m['eps'].mean()):.2f} | {sps:.0f} "
+                          "env-steps/s", flush=True)
+                if metrics_f is not None:
+                    with tracer.span("metrics", index=i + 1):
+                        emit(i, m, evals)
+                boundary = ((i + 1) % spec.checkpoint.every == 0
+                            or i == sched.cycles - 1)
+                if ckpt_dir and boundary:
+                    with tracer.span("checkpoint", index=i + 1):
+                        save_checkpoint(ckpt_dir, i + 1, carry)
+                if boundary:
+                    # per-interval throughput from the tracer's counters:
+                    # long runs stay observable without a trace file
+                    sync()
+                    now, c = time.perf_counter(), tracer.counters
+                    dc = c["cycles"] - win_counters.get("cycles", 0)
+                    ds = c["env_steps"] - win_counters.get("env_steps", 0)
+                    dt = max(now - win_t, 1e-9)
+                    print(f"[throughput] cycle {i + 1:4d}: {dc / dt:.2f} "
+                          f"cycles/s, {ds / dt:.0f} env-steps/s "
+                          f"(last {int(dc)} cycle(s))", flush=True)
+                    win_t, win_counters = now, c
     finally:
         if metrics_f is not None:
             metrics_f.close()
-    if args.dryrun:
-        print(f"DRYRUN OK variant={spec.variant.name}", flush=True)
     return 0
 
 

@@ -21,18 +21,21 @@ actions from the server's microbatches. ``--warm-start`` runs every
 batch bucket once and pre-sizes the stream table before serving;
 ``--policy`` picks greedy, egreedy (``--eps``) or noisy (NoisyNet
 checkpoints only); ``--replica`` the population member to serve.
-``--smoke`` asserts the round trip. ``--trace`` exits 2: telemetry is
-ROADMAP.md queue 1 item 12.
+``--smoke`` asserts the round trip. ``--trace FILE`` records each
+flush's ``serve.flush``, ``serve.queue_wait`` and ``serve.compute`` spans
+and the ``serve.actions`` counter as JSON lines, with a Perfetto twin
+beside it (``python -m repro_torch.launch.trace_report FILE`` summarizes
+it).
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from repro_torch.api.policy_client import SimulatedClients, drive
 from repro_torch.api.serve import POLICIES, ServeSpec, load_policy, make_server
 from repro_torch.api.spec import ExperimentSpec
+from repro_torch.telemetry import chrome_path_for, device_meta, make_tracer
 
 
 def parse_args(argv=None):
@@ -64,7 +67,10 @@ def parse_args(argv=None):
                     help="run every batch bucket once and pre-size the "
                          "stream table before serving")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--trace", default=None, metavar="FILE")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record queue-wait and compute spans per flush "
+                         "(JSON lines + a Perfetto twin; "
+                         "launch/trace_report.py summarizes)")
     ap.add_argument("--smoke", action="store_true",
                     help="assert the round trip and print SERVE OK")
     return ap.parse_args(argv)
@@ -72,10 +78,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.trace:
-        print("--trace is not ported to repro_torch yet: ROADMAP.md, queue "
-              "1 item 12 (telemetry)", file=sys.stderr, flush=True)
-        return 2
     spec = None
     if args.spec:
         with open(args.spec) as f:
@@ -91,9 +93,15 @@ def main(argv=None) -> int:
     serve = ServeSpec(policy=args.policy, eps=args.eps,
                       max_batch=args.max_batch, replica=args.replica,
                       seed=args.seed)
+    tracer = make_tracer(args.trace, meta={
+        "kind": "serve_policy", "env": loaded.spec.env,
+        "variant": loaded.spec.variant.name, "policy": args.policy,
+        "clients": args.clients, "max_batch": args.max_batch,
+        **(device_meta(args.device) if args.trace else {})})
     try:
-        server = make_server(loaded, serve)
+        server = make_server(loaded, serve, tracer=tracer)
     except ValueError as e:
+        tracer.close()
         print(f"invalid serving config: {e}", flush=True)
         return 2
     print(f"serving {loaded.spec.env}/{loaded.spec.variant.name} "
@@ -106,7 +114,13 @@ def main(argv=None) -> int:
 
     clients = SimulatedClients(loaded.spec, args.clients,
                                seed=args.seed + 1, device=server.device)
-    stats = drive(server, clients, args.ticks)
+    try:
+        stats = drive(server, clients, args.ticks)
+    finally:
+        tracer.close()
+    if args.trace:
+        print(f"trace written: {args.trace} (+ Perfetto twin "
+              f"{chrome_path_for(args.trace)})", flush=True)
     print(f"{stats['clients']} streams x {stats['ticks']} ticks: "
           f"{stats['actions_per_s']:.0f} actions/s, "
           f"latency p50 {stats['p50_ms']:.2f} ms "

@@ -17,6 +17,7 @@ repro; and the launcher runs on the CPU only when asked.
 """
 
 import ast
+import dataclasses
 import json
 import os
 import subprocess
@@ -239,7 +240,6 @@ def test_launcher_runs_population_and_seeds(tmp_path, capsys, extra,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (("--sweep", "x.json"), "item 9"), (("--trace", "t.jsonl"), "item 12"),
     (("--compute-dtype", "bfloat16"), "item 7")])
 def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
     from repro_torch.launch import rl_train
@@ -248,6 +248,36 @@ def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
     assert rl_train.main(["--spec", str(path), "--device", "cpu",
                           *extra]) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--trace", "--sweep"])
+def test_launcher_runs_traces_and_sweeps(tmp_path, capsys, flag):
+    """``--trace FILE`` records the run's cycles and env-steps; ``--sweep``
+    packs a manifest's two seeds into one population fleet."""
+    from repro_torch.launch import rl_train
+    from repro_torch.telemetry import report
+    torch.set_num_threads(1)
+    spec = dataclasses.replace(_specs("dqn")[1], mode="population")
+    spec = dataclasses.replace(spec, schedule=dataclasses.replace(
+        spec.schedule, cycles=1))
+    if flag == "--trace":
+        path, trace = tmp_path / "spec.json", str(tmp_path / "t.jsonl")
+        path.write_text(spec.to_json())
+        assert rl_train.main(["--spec", str(path), "--device", "cpu",
+                              "--trace", trace]) == 0
+        got = report.load_trace(trace)
+        assert [s["name"] for s in got["spans"]].count("cycle") == 1
+        assert got["counters"] == {"cycles": 1.0, "env_steps": 32.0}
+        assert "trace written" in capsys.readouterr().out
+    else:
+        path = tmp_path / "sweep.json"
+        path.write_text(json.dumps({"dir": str(tmp_path / "sw"),
+                                    "base": spec.to_dict(),
+                                    "axes": {"seed": [0, 1]}}))
+        assert rl_train.main(["--sweep", str(path), "--device", "cpu"]) == 0
+        assert "SWEEP OK runs=2 trained=2 skipped=0" in \
+            capsys.readouterr().out
+        assert os.listdir(tmp_path / "sw" / "fleets") == ["fleet000-p2"]
 
 
 def test_launcher_checkpoints_and_resumes_on_cpu(tmp_path, capsys):

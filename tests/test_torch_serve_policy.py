@@ -15,7 +15,8 @@ Catch at frame_size 10 with the ``tiny`` net and in vector mode with
   change an action, padding never touches real stream state, a
   reconnect replays identically, ``ServeSpec`` validation, ``noisy``
   refused off a non-noisy checkpoint, checkpoint-dir loading past a
-  torn file, the missing-spec error and the CLI's ``--smoke``.
+  torn file, the missing-spec error and the CLI's ``--smoke``; a server's
+  and the CLI's ``--trace`` telemetry.
 """
 
 import dataclasses
@@ -49,6 +50,7 @@ from repro_torch.core.policy import stream_keys
 from repro_torch.core.synchronized import SamplerState, sync_round
 from repro_torch.envs.preprocess import init_obs_stack, obs_batch, push_frame
 from repro_torch.runtime import configure
+from repro_torch.telemetry import MemorySink, Tracer, report
 
 TINY = dict(env="catch", mode="concurrent", envs=4, frame_size=10)
 SCHED = dict(cycles=2, cycle_steps=16, prepopulate=32, eval_every=1,
@@ -151,12 +153,8 @@ def test_clients_see_the_jax_clients_observations(obs_mode):
 def test_api_exports_the_reference_surface():
     import repro.api
     import repro_torch.api
-    # the reference's Trainer protocol, population fleets and sweeps are
-    # not ported (ROADMAP.md queue 1 item 9)
-    left = {"Trainer", "build_packed_fleet", "SweepSpec", "SweepRun",
-            "Fleet", "MANIFEST_FILENAME", "expand", "pack", "run_sweep",
-            "sweep_compat_diff"}
-    assert set(repro_torch.api.__all__) == set(repro.api.__all__) - left
+    # the whole surface, the Trainer protocol and sweeps included
+    assert set(repro_torch.api.__all__) == set(repro.api.__all__)
     for name in repro_torch.api.__all__:
         assert getattr(repro_torch.api, name) is not None, name
 
@@ -302,8 +300,20 @@ def test_noisy_policy_requires_noisy_checkpoint(tmp_path):
                          device="cpu")
     with pytest.raises(ValueError, match="NoisyNet"):
         make_server(loaded, ServeSpec(policy="noisy"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_server(loaded, ServeSpec(), tracer=object())
+    # a tracer is taken: a flush records its spans and counts its actions
+    sink = MemorySink()
+    tracer = Tracer([sink], capture_compiles=False, with_provenance=False)
+    server = make_server(loaded, ServeSpec(max_batch=2), tracer=tracer)
+    assert server.tracer is tracer
+    server.submit_many(range(3), np.zeros((3,) + loaded.pipe.shape,
+                                          np.uint8), [True] * 3)
+    assert len(server.flush()) == 3
+    tracer.close()
+    names = [r["name"] for r in sink.records if r["t"] == "span"]
+    assert names == ["serve.queue_wait", "serve.compute", "serve.queue_wait",
+                     "serve.compute", "serve.flush"]
+    assert sink.records[-1] == {"t": "counter", "name": "serve.actions",
+                                "value": 3.0, "ts": sink.records[-1]["ts"]}
 
 
 @pytest.mark.parametrize("obs_mode", ["pixels", "vector"])
@@ -345,8 +355,18 @@ def test_serve_policy_cli_smoke(tmp_path, capsys):
     out = capsys.readouterr().out
     assert rc == 0
     assert "SERVE OK" in out and "warm start" in out
-    assert main(["--ckpt-dir", str(d), "--trace", "t.jsonl"]) == 2
-    assert "item 12" in capsys.readouterr().err
+    trace = str(tmp_path / "serve.jsonl")
+    assert main(["--ckpt-dir", str(d), "--clients", "4", "--ticks", "3",
+                 "--max-batch", "8", "--smoke", "--device", "cpu",
+                 "--trace", trace]) == 0
+    assert "trace written" in capsys.readouterr().out
+    got = report.load_trace(trace)
+    names = [s["name"] for s in got["spans"]]
+    assert names.count("serve.flush") == 3
+    assert names.count("serve.compute") == 3
+    assert got["counters"] == {"serve.actions": 12.0}
+    assert got["meta"]["attrs"]["kind"] == "serve_policy"
+    assert got["meta"]["attrs"]["device"] == "cpu"
     assert main(["--ckpt-dir", str(tmp_path / "none"), "--device",
                  "cpu"]) == 2
     assert "cannot serve" in capsys.readouterr().out
