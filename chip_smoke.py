@@ -26,8 +26,8 @@ Phases, each printing its own lines:
    with the rainbow variant (84x84x4 pong frames, the Nature CNN, W=8,
    C=512, F=2, a 16384-slot replay): init_carry, 2 cycles and one eval,
    with each kernel's launches counted (the tree build's per cycle too),
-   then one torch.profiler capture of a cycle (C cut to 32) split by the
-   cycle's phases;
+   then the kernel launches and device busy time of a cycle (C cut to
+   32) from a capture of CUDA activity alone (``launch_count``);
 6. agreement with the port's CPU path (held against the JAX reference
    by tests/test_torch_cycle.py) on a small rainbow configuration;
 7. determinism: two runs of one cycle (C cut to PROFILED_STEPS) from
@@ -125,8 +125,44 @@ Phases, each printing its own lines:
    launcher's --resume training nothing, a changed manifest refused
    naming its field, and load_policy on each run of a fleet equal to
    its slice of the fleet's final carry.
-   Each phase prints its wall time; phases 15-18 keep their checkpoints
-   in a temporary directory they remove.
+19. kernel gradients: flash attention (zamba2's 32 heads of 80, kv 32,
+   and 32 heads of 128 over kv 8; with and without a window), RMSNorm
+   (widths 2560, 5120, 768, 1536), the SSD scan (H 80, P = N = 64, a
+   chunk of 31) and the sLSTM scan (H 4, Pd 192, cold and warm) at the
+   shapes of phases 20-21, float32 and bfloat16, through their autograd
+   Functions: the forward within 2e-4 / 2e-2 of the plain version with
+   one launch, and, for one fixed random cotangent, every input gradient
+   bitwise autograd of the plain version (the backward is that
+   recompute), with no launch in it;
+20. the LLM train launcher: ``python -m repro_torch.launch.train --arch
+   xlstm-125m --no-reduced`` (full width and depth, bf16 compute,
+   float32 parameters, batch 8, sequence 128, TRAIN_STEPS steps) in a
+   process of its own, finite losses; then through its function
+   xlstm-125m again and zamba2-2.7b at full width with its depth cut to
+   AL_SUPERBLOCKS of 9 superblocks, with s/step, peak memory and each
+   kernel's launches per step (those of the forward: the backward
+   launches none), two runs of one step from one state bitwise equal;
+   and the card against the CPU on both reduced archs in float32 for 2
+   steps (losses to 1e-4; the first step's AdamW moments, its gradients,
+   to 1e-3 of each leaf's largest; parameters to 1e-3 of each leaf's
+   largest, or for at most 1% of the elements within the 2 lr of the
+   AdamW steps that rounding turned);
+21. the actor-learner on zamba2-2.7b at full width, cut to
+   AL_SUPERBLOCKS superblocks, bf16 compute, float32 parameters,
+   ALConfig's defaults: the fused ``make_actor_learner`` (init, 3 cycles
+   with s/cycle, generated tokens/s, reward, loss, peak memory, each
+   kernel's launches per cycle against what the code implies, two runs
+   of one cycle from one carry bitwise equal), then
+   ``DisaggregatedActorLearner`` with prioritized and distributional
+   advantages on two streams of the card (3 cycles, the same figures,
+   the segment tree, the tree build and the C51 projection launched by
+   its learner; its cycle beside an actor-only and a learner-only run),
+   and both forms on reduced zamba2 in float32 for 2 cycles of one
+   update each against the CPU path (tokens, cursor, size and step
+   equal, the AdamW moments to 1e-3 of each leaf's largest, parameters
+   as in phase 20).
+   Each phase prints its wall time, and the run its total; phases 15-18
+   keep their checkpoints in a temporary directory they remove.
 
 Phase 3 also holds the SSD scan and the sLSTM scan against their plain
 versions (2e-4 in float32, 2e-2 in bfloat16: y or hs and the final
@@ -153,7 +189,8 @@ run (phase 5 for the DQN kernels and the tree build, the full-cache run
 of phase 8 for RMSNorm and the two attention kernels, phase 10's zamba2
 run for the SSD scan and its xlstm run for the sLSTM scan), with all
 counts set to 0
-just before that run. The line
+just before that run; ``launches_by_path`` adds each kernel's launches
+per step or cycle on phases 20-21's paths. The line
 before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
 printing it. Without a CUDA device, or without the repository's src/
@@ -167,6 +204,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -228,6 +266,19 @@ RESUME_STEPS, RESUME_PREPOPULATE = 32, 256
 SWEEP_MANIFEST = ROOT / "examples" / "specs" / "catch_lr_seeds_sweep.json"
 SWEEP_CYCLES = 3
 SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 100, 10
+# phases 19-21: the train launcher on xlstm-125m at full width and depth
+# (batch, sequence, steps), zamba2-2.7b cut to AL_SUPERBLOCKS of its 9
+# superblocks for CUT_TRAIN_STEPS steps and for the actor-learner (AL_*:
+# ALConfig's defaults, W streams of a prompt and generated tokens), its
+# cycles
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-125m", 8, 128, 4
+AL_ARCH, AL_SUPERBLOCKS, CUT_TRAIN_STEPS, AL_CYCLES = "zamba2-2.7b", 3, 2, 3
+AL_STREAMS, AL_SEQ = 8, 8 + 24
+# phase 19's cases whose forward and backward are also timed
+GRAD_TIMED = ((AL_STREAMS, AL_SEQ - 1, 32, 32, 80, None),
+              (AL_STREAMS * (AL_SEQ - 1), 2560),
+              (AL_STREAMS, AL_SEQ - 1, 80, 64, 64, "chunk 128"),
+              (TRAIN_BATCH, TRAIN_SEQ, 4, 192, "cold"))
 
 
 class SmokeFailure(RuntimeError):
@@ -623,67 +674,19 @@ def phase_main_path(dev):
 
 
 def phase_profile(spec, carry):
-    """Where a cycle's time goes: one torch.profiler capture around a
+    """What a cycle costs: the kernel launches and device busy time of a
     real ``trainer.cycle`` at full width, with C cut to PROFILED_STEPS
     (the full cycle repeats the same rounds and updates, in the same 1:4
-    ratio), split by the cycle's labelled phases: host time, kernel
-    launches and device busy time in each."""
+    ratio), from a capture of CUDA activity alone (``launch_count``)."""
     from repro_torch.api.trainers import ConcurrentTrainer
     short = dataclasses.replace(spec, schedule=dataclasses.replace(
         spec.schedule, cycle_steps=PROFILED_STEPS))
     trainer = ConcurrentTrainer(short, device="cuda")
     carry = _clone(carry)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        trainer.cycle(carry)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    spans = {e.name: e.time_range for e in events
-             if e.name.startswith("cycle.")
-             and e.device_type == torch.autograd.DeviceType.CPU}
-    check(set(spans) == {"cycle.sampler", "cycle.trainer", "cycle.flush"},
-          f"profile holds the phases {sorted(spans)}")
-    spans["outside the phases"] = None
-    launch = {"cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"}
-    rows = {name: [0.0, 0, 0.0] for name in spans}  # host us, launches, dev us
-
-    def phase_of(t):
-        for name, r in spans.items():
-            if r is not None and r.start <= t < r.end:
-                return name
-        return "outside the phases"
-
-    for e in events:
-        # the labels' own device-side spans cover their kernels: skip them
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name not in spans):
-            rows[phase_of(e.time_range.start)][2] += e.time_range.elapsed_us()
-        elif e.name in launch:
-            rows[phase_of(e.time_range.start)][1] += 1
-    for name, r in spans.items():
-        if r is not None:
-            rows[name][0] = r.elapsed_us()
-    rows["outside the phases"][0] = max(
-        wall * 1e6 - sum(r.elapsed_us() for r in spans.values() if r), 0.0)
-    dev_us = sum(r[2] for r in rows.values())
-    n_launch = sum(r[1] for r in rows.values())
-    check(dev_us <= wall * 1e6, f"device busy {dev_us / 1e3:.1f} ms "
-          f"exceeds the cycle's {wall * 1e3:.1f} ms: events counted twice")
-    say(f"profile of one cycle with C={PROFILED_STEPS} "
-        f"({PROFILED_STEPS // spec.envs} rounds, "
-        f"{PROFILED_STEPS // spec.algo.train_period} updates; the profiler "
-        f"slows the host): {wall:.3f} s wall, {n_launch} kernel launches, "
-        + (f"device busy {dev_us / 1e3:.3f} ms "
-           f"({100 * dev_us / 1e6 / wall:.2f}%)" if dev_us > 0 else
-           "device time not measured (no device events recorded)"))
-    for name, (host_us, n, d_us) in rows.items():
-        say(f"profile {name}: host {host_us / 1e3:.2f} ms "
-            f"({100 * host_us / 1e6 / wall:.1f}% of the cycle), {n} "
-            f"launches, device busy {d_us / 1e3:.3f} ms")
+    launch_count(f"one cycle with C={PROFILED_STEPS} "
+                 f"({PROFILED_STEPS // spec.envs} rounds, "
+                 f"{PROFILED_STEPS // spec.algo.train_period} updates)",
+                 lambda: trainer.cycle(carry))
 
 
 def phase_against_cpu():
@@ -2552,6 +2555,509 @@ def phase_recurrent_against_cpu(arch: str):
 
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: kernel gradients, LLM training, the actor-learner
+# ---------------------------------------------------------------------------
+
+def _grad_check(name: str, wrapper, plain, inputs, dtype, case) -> float:
+    """``wrapper(*inputs)`` (the kernel's wrapper with a gradient, so its
+    autograd Function) against ``plain(*inputs)``, both tuples of
+    outputs: the forward to LLM_TOL, one launch and none in the backward,
+    and the input gradients for one fixed random cotangent bitwise those
+    of autograd through the plain version. Returns the forward's max abs
+    error."""
+    counter = kernel_table()[name][0]
+    xs = [t.detach().clone().requires_grad_() for t in inputs]
+    ys = [t.detach().clone().requires_grad_() for t in inputs]
+    before = counter.launches
+    outs = wrapper(*xs)
+    check(counter.launches == before + 1,
+          f"{name} at {case}: {counter.launches - before} launches, not 1")
+    check(all("PlainRecompute" in type(o.grad_fn).__name__ for o in outs),
+          f"{name} at {case}: the output does not come from the autograd "
+          f"Function ({[type(o.grad_fn).__name__ for o in outs]})")
+    want = plain(*ys)
+    err = max(_llm_check(name, o.detach(), w.detach(), dtype, case)
+              for o, w in zip(outs, want))
+    gen = torch.Generator().manual_seed(11)
+    cots = [torch.randn(w.shape, generator=gen).to(device=w.device,
+                                                   dtype=w.dtype)
+            for w in want]
+    got = torch.autograd.grad(outs, xs, cots)
+    ref = torch.autograd.grad(want, ys, cots)
+    torch.cuda.synchronize()
+    check(counter.launches == before + 1,
+          f"{name} at {case}: the backward launched the kernel")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{name} at {case} {dtype}: the gradient of input {i} is not "
+              f"bitwise the plain version's (max abs diff "
+              f"{float((a.float() - b.float()).abs().max())})")
+    if dtype == torch.bfloat16 and case in GRAD_TIMED:
+        ms = {}
+        for label, fn in (("kernel forward + plain backward", wrapper),
+                          ("plain forward + backward", plain)):
+            runs = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.autograd.grad(fn(*xs), xs, cots)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            ms[label] = statistics.median(runs[1:])
+        say(f"gradient {name} at {case} bf16, host clock to a synchronize "
+            f"(median of 3 after one): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return err
+
+
+def phase_kernel_grads(dev) -> None:
+    """Phase 19: the four kernels with a backward (flash attention,
+    RMSNorm, the SSD scan, the sLSTM scan) through their autograd
+    Functions at this slice's shapes, float32 and bfloat16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels import ssm_scan as ss
+    gen = torch.Generator().manual_seed(19)
+    B, S = AL_STREAMS, AL_SEQ - 1
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # zamba2's shared attention (32 heads of 80, kv 32) in the
+        # learner's forward, and a GQA layout at head dim 128
+        for H, Hkv, D in ((32, 32, 80), (32, 8, 128)):
+            q = _randn(gen, (B, S, H, D), dtype, dev)
+            k = _randn(gen, (B, S, Hkv, D), dtype, dev)
+            v = _randn(gen, (B, S, Hkv, D), dtype, dev)
+            for window in (None, 16):
+                _grad_check(
+                    "flash_attention",
+                    lambda q, k, v: (fa.flash_attention(q, k, v, True,
+                                                        window),),
+                    lambda q, k, v: (fa.flash_attention_plain(
+                        q, k, v, True, window),),
+                    (q, k, v), dtype, (B, S, H, Hkv, D, window))
+                n += 1
+        for rows, D in ((B * S, 2560), (B * S, 5120),
+                        (TRAIN_BATCH * TRAIN_SEQ, 768),
+                        (TRAIN_BATCH * TRAIN_SEQ, 1536)):
+            x = _randn(gen, (B, rows // B, D), dtype, dev)
+            g = 1.0 + 0.1 * _randn(gen, (D,), torch.float32, dev)
+            _grad_check("rmsnorm", lambda x, g: (rn.rmsnorm(x, g, 1e-5),),
+                        lambda x, g: (rn.rmsnorm_plain(x, g, 1e-5),),
+                        (x, g), dtype, (rows, D))
+            n += 1
+        _grad_check("ssm_scan", lambda *a: ss.ssm_scan(*a, chunk=128),
+                    ss.ssm_scan_plain,
+                    _scan_inputs(gen, B, S, 80, 64, 64, dtype, dev), dtype,
+                    (B, S, 80, 64, 64, "chunk 128"))
+        Bt, St, Hs, Pd = TRAIN_BATCH, TRAIN_SEQ, 4, 192
+        for warm in (False, True):
+            wx, R, b, st = _slstm_inputs(gen, Bt, St, Hs, Pd, dtype, dev,
+                                         warm)
+            _grad_check(
+                "slstm_scan",
+                lambda wx, R, b, *st: (lambda hs, s: (hs, *s))(
+                    *sl.slstm_scan(wx, R, b, tuple(st), Hs)),
+                lambda wx, R, b, *st: (lambda hs, s: (hs, *s))(
+                    *sl.slstm_scan_plain(wx, R, b, tuple(st), Hs)),
+                (wx, R, b, *st), dtype, (Bt, St, Hs, Pd, "warm" if warm
+                                         else "cold"))
+        n += 3
+    with torch.no_grad():
+        q = _randn(gen, (B, S, 32, 80), torch.bfloat16, dev)
+        o = fa.flash_attention(q.requires_grad_(), q, q)
+    check(o.grad_fn is None, "flash_attention under no_grad recorded a "
+          "gradient")
+    say(f"kernel gradients: {n} cases (flash attention at D 80 and 128 "
+        f"with and without a window, RMSNorm at 4 widths, the SSD scan, "
+        f"the sLSTM scan cold and warm; float32 and bfloat16): outputs "
+        f"within 2e-4 / 2e-2 of the plain versions, one launch each and "
+        f"none in the backward, input gradients bitwise autograd of the "
+        f"plain versions")
+
+
+def _forward_launches(cfg) -> dict:
+    """Each kernel's launches in one full-sequence forward of ``cfg``:
+    one RMSNorm per recurrent block, two per attention block and the
+    final one; one flash attention per attention block, one scan per
+    Mamba2 or sLSTM block."""
+    from repro_torch.config import ATTN, MAMBA2, SLSTM
+    per = {k: cfg.superblock.count(k) * cfg.n_superblocks
+           for k in (ATTN, MAMBA2, SLSTM)}
+    out = dict.fromkeys(kernel_table(), 0)
+    out.update(rmsnorm=1 + cfg.n_layers + per[ATTN],
+               flash_attention=per[ATTN], ssm_scan=per[MAMBA2],
+               slstm_scan=per[SLSTM])
+    return out
+
+
+def _scaled(counts: dict, k: int) -> dict:
+    return {name: k * v for name, v in counts.items()}
+
+
+def _added(*counts: dict) -> dict:
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def _leaves_agree(on_cpu, on_card, label: str, rel: float = 1e-3) -> float:
+    """Each leaf of a tree from the card within ``rel`` of the CPU's
+    leaf's largest magnitude; returns the worst error over that scale."""
+    from repro_torch.optim.base import flatten
+    card = flatten(on_card)
+    worst = 0.0
+    for path, a in flatten(on_cpu).items():
+        a, b = a.double(), card[path].cpu().double()
+        scale = max(float(a.abs().max()), 1e-30)
+        e = float((a - b).abs().max()) / scale
+        check(e <= rel, f"{label} {'/'.join(path)}: card and CPU differ by "
+              f"{e:.2e} of the leaf's largest magnitude")
+        worst = max(worst, e)
+    return worst
+
+
+def _params_agree(on_cpu, on_card, lr_sum: float, label: str,
+                  rel: float = 1e-3):
+    """Parameters from the card against the CPU's after AdamW steps: each
+    element within ``rel`` of its leaf's largest magnitude, but at most
+    1% of them within 2 lr summed over the steps instead. An AdamW step
+    moves an element by about lr whatever its gradient's size, so where a
+    gradient is near the noise of its sign, or near eps, rounding turns
+    the step; and in a leaf that starts at zero (biases, A_log, dt_bias)
+    the largest magnitude is itself only a few lr. Returns (worst error
+    over its leaf's scale, elements that took the second bound, all
+    elements)."""
+    from repro_torch.optim.base import flatten
+    card = flatten(on_card)
+    worst, moved, total = 0.0, 0, 0
+    for path, a in flatten(on_cpu).items():
+        a, b = a.double(), card[path].cpu().double()
+        err = (a - b).abs()
+        scale = max(float(a.abs().max()), 1e-30)
+        e = float(err.max()) if err.numel() else 0.0
+        check(e <= max(rel * scale, 2 * lr_sum),
+              f"{label} {'/'.join(path)}: card and CPU differ by {e} "
+              f"(leaf scale {scale})")
+        worst = max(worst, e / scale)
+        moved += int((err > rel * scale).sum())
+        total += err.numel()
+    check(moved <= 1e-2 * total, f"{label}: {moved} of {total} elements "
+          f"beyond {rel} of their leaf's scale")
+    return worst, moved, total
+
+
+def _train_args(arch: str, *extra):
+    from repro_torch.launch import train
+    return train.parse_args(["--arch", arch, "--batch", str(TRAIN_BATCH),
+                             "--seq", str(TRAIN_SEQ), "--log-every", "1",
+                             *extra])
+
+
+def _train_rerun_bitwise(res, step: int, dev) -> int:
+    """Two runs of one train step from the run's final state: bitwise
+    equal; returns the number of tensors compared."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    cfg, ec = res["cfg"], res["ec"]
+    step_fn, _ = make_train_step(cfg, ec, TrainConfig(
+        learning_rate=3e-3, warmup_steps=10, remat=False))
+    batch = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH).batch(step,
+                                                                 device=dev)
+    a = step_fn(res["params"], res["opt_state"], batch)
+    b = step_fn(res["params"], res["opt_state"], batch)
+    torch.cuda.synchronize()
+    return _bitwise(a, b, f"{cfg.arch_id} train step between runs: ")
+
+
+def phase_train(dev) -> dict:
+    """Phase 20: the LLM train launcher. Returns each kernel's launches
+    per step on the two full-width runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.optim.schedule import warmup_cosine
+    paths = {}
+    # the CLI in a process of its own: xlstm-125m at full width and depth
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--no-reduced", "--steps", str(TRAIN_STEPS),
+           "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+           "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=600)
+    check(res.returncode == 0, f"{' '.join(cmd[2:])} exited "
+          f"{res.returncode}:\n{(res.stdout + res.stderr)[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("step ")]
+    losses = [float(ln.split()[3]) for ln in lines]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"train launcher printed {lines}")
+    say(f"train launcher {' '.join(cmd[2:])}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; " + "; ".join(lines))
+    # through the launcher's function: launches, memory, bitwise reruns
+    cut = dataclasses.replace(get_config(AL_ARCH),
+                              n_superblocks=AL_SUPERBLOCKS)
+    for arch, cfg, steps in ((TRAIN_ARCH, None, TRAIN_STEPS),
+                             (AL_ARCH, cut, CUT_TRAIN_STEPS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run = train.run(_train_args(arch, "--no-reduced", "--steps",
+                                    str(steps)), cfg=cfg)
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = run["cfg"]
+        want = _forward_launches(cfg)
+        check(launches == _scaled(want, steps), f"train {arch}: launches "
+              f"{launches}, expected {steps} x {want} (the forward's; the "
+              f"backward launches none)")
+        check(all(map(math.isfinite, run["losses"])),
+              f"train {arch}: losses {run['losses']}")
+        n_params = sum(t.numel() for _, t in _paths(run["params"]))
+        depth = (f"{cfg.n_superblocks} of 9 superblocks" if arch == AL_ARCH
+                 else "full depth")
+        label = f"train {arch} ({depth})"
+        paths[label] = {k: v // steps for k, v in launches.items()}
+        say(f"{label} full width, bf16 compute, float32 parameters "
+            f"({n_params} parameters), batch {TRAIN_BATCH}, seq {TRAIN_SEQ}: "
+            f"init {run['init_s']:.2f} s, {run['s_per_step']:.3f} s/step "
+            f"over {steps} steps, peak memory {peak_gb:.2f} GB, losses "
+            + ", ".join(f"{x:.4f}" for x in run["losses"]))
+        say(f"{label} launches per step: {paths[label]}")
+        n = _train_rerun_bitwise(run, steps, dev)
+        say(f"{label}: two runs of one step from one state bitwise equal "
+            f"({n} tensors)")
+        del run
+    # the card against the CPU on the reduced archs, float32, 2 steps
+    lr = warmup_cosine(3e-3, 10, 10_000)
+    lr_sum = sum(float(lr(torch.tensor(i + 1))) for i in range(2))
+    for arch in (TRAIN_ARCH, AL_ARCH):
+        runs, first = {}, {}
+        for d in ("cpu", "cuda"):
+            def keep(i, params, opt_state, d=d):
+                if i == 0:       # the first step's moments: its gradients
+                    first[d] = opt_state
+            runs[d] = train.run(_train_args(arch, "--steps", "2",
+                                            "--device", d), on_step=keep)
+        a, b = runs["cpu"]["losses"], runs["cuda"]["losses"]
+        check(all(abs(x - y) <= 1e-4 + 1e-4 * abs(x) for x, y in zip(a, b)),
+              f"train {arch} reduced: losses {a} on the CPU, {b} on the card")
+        g_worst = max(_leaves_agree(first["cpu"][k], first["cuda"][k],
+                                    f"train {arch} reduced, step 1's {k}")
+                      for k in ("m", "v"))
+        worst, moved, total = _params_agree(
+            runs["cpu"]["params"], runs["cuda"]["params"], lr_sum,
+            f"train {arch} reduced")
+        say(f"train agreement with the CPU path (reduced {arch}, float32, 2 "
+            f"steps): losses within 1e-4 ({a} / {b}); step 1's AdamW moments "
+            f"within 1e-3 of each leaf's largest (max {g_worst:.2e}); params "
+            f"after 2 steps within 1e-3 of each leaf's largest (max "
+            f"{worst:.2e}) but for {moved} of {total} elements, within 2 lr")
+    return paths
+
+
+def _al_want(cfg, al, learner: bool, per_sample: bool) -> dict:
+    """Each kernel's launches in one actor-learner cycle: the actor's
+    prompt_len + gen_len decode steps, and, where the learner runs, its
+    updates' forwards (the backward launches none) and, with
+    ``per_sample``, one descent per update, one tree build and one C51
+    projection per learner call."""
+    from repro_torch.config import ATTN
+    from repro_torch.kernels import segment_tree as st
+    steps = al.prompt_len + al.gen_len
+    attn = cfg.superblock.count(ATTN) * cfg.n_superblocks
+    actor = dict.fromkeys(kernel_table(), 0)
+    actor.update(rmsnorm=(1 + cfg.n_layers + attn) * steps,
+                 decode_attention=attn * steps)
+    if not learner:
+        return actor
+    out = _added(actor, _scaled(_forward_launches(cfg),
+                                al.updates_per_cycle))
+    if per_sample:
+        out["segment_tree"] = al.updates_per_cycle
+        out["tree_build"] = len(st.tree_build_plan(
+            st.next_pow2(al.replay_capacity)))
+        out["categorical_projection"] = 1
+    return out
+
+
+def _al_cycle_line(label, dt, al, m, launches) -> None:
+    say(f"{label}: {dt:.3f} s, {al.n_streams * al.gen_len / dt:.1f} "
+        f"generated tokens/s, reward {float(m['reward']):.4f}, loss "
+        f"{float(m['loss']):.6f}, launches {launches}")
+
+
+def phase_actor_learner(dev) -> dict:
+    """Phase 21: the fused and the disaggregated actor-learner on
+    zamba2-2.7b at full width, its depth cut. Returns each kernel's
+    launches per cycle on both forms."""
+    from repro_torch import rng
+    from repro_torch.config import ExecConfig
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.actor_learner import ALConfig, make_actor_learner
+    from repro_torch.core.disaggregated import DisaggregatedActorLearner
+    from repro_torch.kernels import segment_tree as st
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    paths = {}
+    cfg = dataclasses.replace(get_config(AL_ARCH),
+                              n_superblocks=AL_SUPERBLOCKS)
+    ec = ExecConfig(compute_dtype="bfloat16")
+    al = ALConfig()
+    n_params = P.param_count(T.model_param_spec(cfg, ec))
+    say(f"actor-learner {AL_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, vocab {cfg.vocab}"
+        f"), depth cut to {AL_SUPERBLOCKS} of 9 superblocks ("
+        f"{AL_SUPERBLOCKS * cfg.superblock.count('mamba2')} Mamba2 blocks, "
+        f"{AL_SUPERBLOCKS} calls of the shared attention; {n_params} "
+        f"parameters: eager AdamW holds ~9 float32 copies of them at its "
+        f"peak), bf16 compute, float32 parameters; {al}")
+    # --- fused ------------------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init, cycle = make_actor_learner(cfg, ec, al)
+    t0 = time.perf_counter()
+    carry = init(rng.PRNGKey(0, device=dev))
+    torch.cuda.synchronize()
+    say(f"actor-learner fused init: {time.perf_counter() - t0:.2f} s")
+    want = _al_want(cfg, al, learner=True, per_sample=False)
+    for c in range(AL_CYCLES):
+        reset_launches()
+        t0 = time.perf_counter()
+        carry, m = cycle(carry)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == want, f"fused cycle {c + 1}: launches {launches}, "
+              f"expected {want}")
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              f"fused cycle {c + 1}: {m}")
+        _al_cycle_line(f"actor-learner fused cycle {c + 1}", dt, al, m,
+                       launches)
+    paths["actor-learner fused"] = want
+    check(int(carry.step) == AL_CYCLES and int(carry.size) == min(
+        AL_CYCLES * al.n_streams, al.replay_capacity),
+        "fused carry's step or size is wrong")
+    seqs = carry.seqs[: AL_CYCLES * al.n_streams]
+    check(bool(((seqs >= 0) & (seqs < cfg.vocab)).all()),
+          "a generated token lies outside the vocabulary")
+    say(f"actor-learner fused peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    a, ma = cycle(carry)
+    b, mb = cycle(carry)
+    torch.cuda.synchronize()
+    n = _bitwise(a, b, "fused cycle between runs: ")
+    check(all(torch.equal(ma[k], mb[k]) for k in ma), "fused metrics differ")
+    say(f"actor-learner fused: two runs of one cycle from one carry bitwise "
+        f"equal ({n} tensors)")
+    del carry, a, b
+    # --- disaggregated, on two streams of the card ------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alpd = dataclasses.replace(al, prioritized=True, distributional_adv=True)
+    t0 = time.perf_counter()
+    dal = DisaggregatedActorLearner(cfg, ec, alpd, actor_device=dev,
+                                    learner_device=dev)
+    torch.cuda.synchronize()
+    check(dal.actor_stream is not None and dal.learner_stream is not None,
+          "the disaggregated actor-learner did not take two streams")
+    say(f"actor-learner disaggregated (prioritized, distributional_adv; "
+        f"actor and learner on two streams of the card) init: "
+        f"{time.perf_counter() - t0:.2f} s")
+    times = []
+    for c in range(AL_CYCLES):
+        reset_launches()
+        t0 = time.perf_counter()
+        m = dal.cycle()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        launches = read_launches()
+        want = _al_want(cfg, alpd, learner=c > 0, per_sample=True)
+        check(launches == want, f"disaggregated cycle {c + 1}: launches "
+              f"{launches}, expected {want}")
+        check(all(map(math.isfinite, m.values())),
+              f"disaggregated cycle {c + 1}: {m}")
+        _al_cycle_line(f"actor-learner disaggregated cycle {c + 1}", dt,
+                       alpd, m, launches)
+    paths["actor-learner disaggregated"] = want
+    check(st.tree_build.launches <= 2, "tree_build over 2 launches a call")
+    say(f"actor-learner disaggregated peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # its cycle beside the actor alone and the learner alone (a reading)
+    key = rng.fold_in(rng.PRNGKey(3, device=dev), dal.step)
+    kp, kg, kt = rng.split(key, 3)
+    target = {k: v for k, v in dal.params.items()}
+    prompts = rng.randint(kp, (alpd.n_streams, alpd.prompt_len), 0,
+                          cfg.vocab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dal._actor(target, prompts, kg)
+    torch.cuda.synchronize()
+    actor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dal._learner(dal.params, dal.opt_state, dal.seqs, dal.advs, dal.size, kt)
+    torch.cuda.synchronize()
+    learner_s = time.perf_counter() - t0
+    say(f"actor-learner disaggregated: a cycle on two streams "
+        f"{statistics.median(times[1:]):.3f} s (median of cycles 2-"
+        f"{AL_CYCLES}) beside the actor alone {actor_s:.3f} s + the learner "
+        f"alone {learner_s:.3f} s = {actor_s + learner_s:.3f} s")
+    del dal
+    torch.cuda.empty_cache()
+    # --- the card against the CPU on reduced zamba2, float32 --------------
+    # the learner's forward takes L - 1 tokens, which the SSD scan's chunk
+    # rule (the reference's) needs to be a multiple of reduced zamba2's
+    # chunk of 16 (or below it): one more generated token, 8 + 25 - 1 = 32.
+    # One update a cycle: reduced zamba2's float32 gradients agree between
+    # the card and the CPU to ~2e-4 of a leaf's largest (phase 20), and
+    # each further AdamW step at lr 1e-3 turns the elements whose gradient
+    # is near that noise, until the parameters part by more than rounding;
+    # so the check holds the one real update's moments, its gradient
+    rcfg = reduced_config(AL_ARCH)
+    ec32 = ExecConfig(compute_dtype="float32")
+    al = dataclasses.replace(al, gen_len=al.gen_len + 1, updates_per_cycle=1)
+    alpd = dataclasses.replace(alpd, gen_len=al.gen_len, updates_per_cycle=1)
+    for label, kw in (("fused", None), ("disaggregated", alpd)):
+        ends = {}
+        for d in ("cpu", "cuda"):
+            if kw is None:
+                init, cycle = make_actor_learner(rcfg, ec32, al)
+                carry = init(rng.PRNGKey(0, device=d))
+                for _ in range(2):
+                    carry, _ = cycle(carry)
+                ends[d] = (carry.params, carry.opt_state, carry.seqs,
+                           int(carry.cursor), int(carry.size),
+                           int(carry.step))
+            else:
+                dal = DisaggregatedActorLearner(rcfg, ec32, kw,
+                                                actor_device=d,
+                                                learner_device=d)
+                for _ in range(2):
+                    dal.cycle()
+                ends[d] = (dal.params, dal.opt_state, dal.seqs, dal.cursor,
+                           dal.size, dal.step)
+        cpu, card = ends["cpu"], ends["cuda"]
+        check(torch.equal(cpu[2], card[2].cpu()),
+              f"actor-learner {label}: tokens differ between the card and "
+              f"the CPU")
+        check(cpu[3:] == card[3:], f"actor-learner {label}: cursor, size, "
+              f"step {cpu[3:]} on the CPU, {card[3:]} on the card")
+        g_worst = max(_leaves_agree(cpu[1][k], card[1][k],
+                                    f"actor-learner {label} reduced {k}")
+                      for k in ("m", "v"))
+        worst, moved, total = _params_agree(
+            cpu[0], card[0], al.learning_rate,
+            f"actor-learner {label} reduced")
+        say(f"actor-learner {label} agreement with the CPU path (reduced "
+            f"{AL_ARCH}, float32, 2 cycles of one update): tokens equal, "
+            f"cursor, size and step equal, AdamW moments within 1e-3 of "
+            f"each leaf's largest (max {g_worst:.2e}), params within 1e-3 "
+            f"of each leaf's largest (max {worst:.2e}) but for {moved} of "
+            f"{total} elements, within 2 lr")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2645,6 +3151,12 @@ def main() -> int:
         timed("18 (sweep)", phase_sweep, d, dev)
     say(f"checkpoint, serving and sweep phases (resume, launcher, serving, "
         f"sweep): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    timed("19 (kernel gradients)", phase_kernel_grads, dev)
+    new_paths = timed("20 (train)", phase_train, dev)
+    new_paths.update(timed("21 (actor-learner)", phase_actor_learner, dev))
+    say(f"training and actor-learner phases (kernel gradients, train, "
+        f"actor-learner): {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():
@@ -2658,7 +3170,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": l_ms})
+            "library_ms": l_ms,
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in new_paths.items()}})
         if name in LATENCY_BOUND:
             kernels[-1]["floor_ms"] = floor_ms
     say(f"total wall time: {time.perf_counter() - start:.1f} s")

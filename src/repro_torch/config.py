@@ -45,6 +45,22 @@ class ExecConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer / step configuration for the LLM training path."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True            # activation checkpointing per superblock
+    microbatch: int = 0           # 0 = no gradient accumulation
+
+
+@dataclasses.dataclass(frozen=True)
 class VariantConfig:
     """Off-policy DQN variant family: double Q-learning, dueling heads,
     proportional prioritized replay, n-step returns, C51 and NoisyNet,

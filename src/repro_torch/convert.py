@@ -11,7 +11,9 @@ are tuples of arrays (the mLSTM's (C, n, m), the sLSTM's (c, n, h, m)).
 Keys become (..., 2) int64 tensors of uint32 words; every other array
 keeps its dtype. Optimizer state crosses for both optimizers (centered
 RMSProp's moments, AdamW's moments and step), and both carries: the
-concurrent ``TrainerCarry`` and the sequential modes' ``BaselineCarry``.
+concurrent ``TrainerCarry`` and the sequential modes' ``BaselineCarry``,
+and the actor-learner's: the fused ``ALCarry`` and the state of a
+``DisaggregatedActorLearner`` (parameters, AdamW state, replay).
 A population carry is the concurrent carry with a leading replica axis
 on every leaf, and crosses through the same functions: every conversion
 here is per leaf and keeps the leading axes.
@@ -24,6 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.actor_learner import ALCarry
 from repro_torch.core.baseline import BaselineCarry
 from repro_torch.core.concurrent import TrainerCarry
 from repro_torch.core.synchronized import SamplerState
@@ -52,9 +55,9 @@ def params_from_jax(params: Mapping[str, Any], device="cpu") -> Dict[str, torch.
 
 def opt_state_from_jax(opt_state: Mapping[str, Any], device="cpu") -> Dict:
     """An optimizer's state: centered RMSProp's ``s`` and ``g`` moment
-    dicts, or AdamW's ``m`` and ``v`` dicts and its int32 ``step``."""
-    return {k: _dict(v, device) if isinstance(v, Mapping)
-            else tensor_from_jax(v, device) for k, v in opt_state.items()}
+    dicts, or AdamW's ``m`` and ``v`` dicts (flat, or nested as the
+    transformer's parameters) and its int32 ``step``."""
+    return {k: tree_from_jax(v, device) for k, v in opt_state.items()}
 
 
 def _sampler(s: Any, device) -> SamplerState:
@@ -100,3 +103,30 @@ def tree_from_jax(tree: Any, device="cpu") -> Any:
     if isinstance(tree, (tuple, list)):
         return tuple(tree_from_jax(v, device) for v in tree)
     return tensor_from_jax(tree, device)
+
+
+def al_carry_from_jax(carry: Any, device="cpu") -> ALCarry:
+    """A reference ``ALCarry`` (params, opt_state, seqs, rewards, cursor,
+    size, step) as the port's."""
+    return ALCarry(tree_from_jax(carry.params, device),
+                   opt_state_from_jax(carry.opt_state, device),
+                   _i32(carry.seqs, device),
+                   tensor_from_jax(carry.rewards, device),
+                   _i32(carry.cursor, device), _i32(carry.size, device),
+                   _i32(carry.step, device))
+
+
+def disaggregated_from_jax(dst: Any, params: Any, opt_state: Any, seqs: Any,
+                           advs: Any, cursor: int, size: int,
+                           step: int) -> Any:
+    """Load a reference ``DisaggregatedActorLearner``'s state (its
+    ``params``, ``opt_state``, ``seqs`` and ``advs`` as numpy arrays, its
+    Python-int ``cursor``, ``size`` and ``step``) into the port's
+    ``dst``, on ``dst``'s learner device; returns ``dst``."""
+    dev = dst.learner_device
+    dst.params = tree_from_jax(params, dev)
+    dst.opt_state = opt_state_from_jax(opt_state, dev)
+    dst.seqs = _i32(seqs, dev)
+    dst.advs = tensor_from_jax(advs, dev)
+    dst.cursor, dst.size, dst.step = int(cursor), int(size), int(step)
+    return dst

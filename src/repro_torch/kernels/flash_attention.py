@@ -8,7 +8,9 @@ device memory): bfloat16 with a head dim that is a multiple of 16 (up to
 256) runs on the tensor cores (wgmma fed by TMA through an mbarrier
 ring); float32, and bfloat16 with D % 16 == 8, run the scalar float32
 body. On a CPU tensor it runs the plain version of ``kernels/ref.py`` in
-the kernel layout (B, H, S, D). Forward only.
+the kernel layout (B, H, S, D). A call that must record a gradient
+goes through ``recompute.PlainRecompute``: the kernel forward, the plain
+version's autograd backward (the reference's ``custom_vjp`` rule).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.recompute import PlainRecompute, needs_grad
 from repro_torch.kernels.ref import flash_attention as _plain
 
 __all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM"]
@@ -52,9 +55,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16. ``window``: keys with kpos > qpos - window only. CUDA
     tensors go through the kernel (its launches are counted in
     ``flash_attention.launches``); CPU tensors through the plain
-    version."""
+    version. On the card a call that needs a gradient gets it from the
+    plain version (``recompute``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
+    if needs_grad(q, k, v):
+        return PlainRecompute.apply(
+            _launch, flash_attention_plain,
+            {"causal": causal, "window": window}, q, k, v)[0]
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """The kernel's launch, counted in ``flash_attention.launches``."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     shape = f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"

@@ -4,8 +4,10 @@ On a CUDA tensor ``rmsnorm`` launches the kernel of ``csrc/rmsnorm.cu``,
 which reads each row once into registers, with the thread layout
 ``rmsnorm_plan`` picks for the shape; on a CPU tensor it runs the plain
 version of ``kernels/ref.py``. The two agree to float rounding: the
-kernel sums the squares in another order. Forward only: the serve path
-needs no gradient.
+kernel sums the squares in another order. A call that must record a
+gradient goes through ``recompute.PlainRecompute``: the kernel forward,
+the plain version's autograd backward (the reference's ``custom_vjp``
+rule).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.recompute import PlainRecompute, needs_grad
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_plan", "RmsnormPlan"]
@@ -103,9 +106,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     """x: (..., D) float32 or bfloat16; gamma: (D,) float32. Returns x's
     shape and type. CUDA tensors go through the kernel (its launches are
     counted in ``rmsnorm.launches``); CPU tensors through the plain
-    version."""
+    version. On the card a call that needs a gradient gets it from the
+    plain version (``recompute``)."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, gamma, eps)
+    if needs_grad(x, gamma):
+        return PlainRecompute.apply(_launch, rmsnorm_plain, {"eps": eps},
+                                    x, gamma)[0]
+    return _launch(x, gamma, eps)
+
+
+def _launch(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    """The kernel's launch, counted in ``rmsnorm.launches``."""
     D = x.shape[-1]
     code = build.dtype_code("rmsnorm", x)
     if gamma.shape != (D,) or gamma.dtype != torch.float32:

@@ -10,7 +10,12 @@ thread-block cluster with h exchanged through distributed shared memory,
 or R streamed from L2 where a head's R does not fit the cluster. On a
 CPU tensor it runs the plain version of ``kernels/ref.py``.
 ``slstm_scan_cluster`` replays the cluster body's schedule in plain
-PyTorch for the tests. Forward only.
+PyTorch for the tests. A call that must record a gradient goes through
+``recompute.PlainRecompute``: the kernel forward, the plain version's
+autograd backward, from hs and the final state to wx, R, b and the
+incoming state (the reference has no vjp here and trains xLSTM through
+its XLA scan; the port has no such switch, so it takes the same rule as
+the other kernels).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.recompute import PlainRecompute, needs_grad
 from repro_torch.kernels.ref import slstm_scan as slstm_scan_plain
 
 __all__ = ["slstm_scan", "slstm_scan_plain", "slstm_scan_cluster",
@@ -226,9 +232,31 @@ def slstm_scan(wx: torch.Tensor, R: torch.Tensor, b: torch.Tensor,
     """wx: (B, S, 4d) float32 or bfloat16; R: (4, H, Pd, Pd), b: (4d,) and
     the state's four (B, d) tensors float32; H = n_heads, d = H Pd. CUDA
     tensors go through the kernel (its launches are counted in
-    ``slstm_scan.launches``); CPU tensors through the plain version."""
+    ``slstm_scan.launches``); CPU tensors through the plain version. On
+    the card a call that needs a gradient gets it from the plain version
+    (``recompute``)."""
     if wx.device.type == "cpu":
         return slstm_scan_plain(wx, R, b, state, n_heads)
+    if needs_grad(wx, R, b, *state):
+        hs, *out = PlainRecompute.apply(
+            _flat(_launch), _flat(slstm_scan_plain), {"n_heads": n_heads},
+            wx, R, b, *state)
+        return hs, tuple(out)
+    return _launch(wx, R, b, state, n_heads)
+
+
+def _flat(scan: Callable) -> Callable:
+    """``scan`` taking the state's four tensors as arguments of their own
+    and returning (hs, c, n, h, m): the form of ``PlainRecompute``."""
+    def flat(wx, R, b, c, n, h, m, n_heads):
+        hs, state = scan(wx, R, b, (c, n, h, m), n_heads)
+        return (hs, *state)
+    return flat
+
+
+def _launch(wx: torch.Tensor, R: torch.Tensor, b: torch.Tensor, state: State,
+            n_heads: int) -> Tuple[torch.Tensor, State]:
+    """The kernel's launch, counted in ``slstm_scan.launches``."""
     B, S, d4 = wx.shape
     d, H = d4 // 4, n_heads
     Pd = d // H if H else 0

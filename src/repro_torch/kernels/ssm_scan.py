@@ -13,7 +13,10 @@ chunk to chunk through distributed shared memory); else the scalar body.
 On a CPU tensor it runs the plain version of ``kernels/ref.py`` (the
 sequential recurrence) in the kernel layout (B, H, S, P).
 ``ssm_scan_cluster`` replays the cluster body's schedule in plain
-PyTorch for the tests. Forward only.
+PyTorch for the tests. A call that must record a gradient goes through
+``recompute.PlainRecompute``: the kernel forward, the plain version's
+autograd backward (the reference's ``custom_vjp`` rule), y and the final
+state both differentiable.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.recompute import PlainRecompute, needs_grad
 from repro_torch.kernels.ref import ssm_scan as _plain
 
 __all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_cluster", "chunk_length",
@@ -291,12 +295,28 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B, S, H, P); dt: (B, S, H) float32; A: (H,) float32; Bm, Cm:
     (B, S, N) of x's type (float32 or bfloat16). CUDA tensors go through
     the kernel (its launches are counted in ``ssm_scan.launches``); CPU
-    tensors through the plain version."""
+    tensors through the plain version. On the card a call that needs a
+    gradient gets it from the plain version (``recompute``)."""
+    chunk_length(x.shape[1], chunk)
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, dt, A, Bm, Cm)
+    if needs_grad(x, dt, A, Bm, Cm):
+        return PlainRecompute.apply(_launch, _plain_out, {"chunk": chunk},
+                                    x, dt, A, Bm, Cm)
+    return _launch(x, dt, A, Bm, Cm, chunk)
+
+
+def _plain_out(x, dt, A, Bm, Cm, chunk):
+    return ssm_scan_plain(x, dt, A, Bm, Cm)
+
+
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch, counted in ``ssm_scan.launches``."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     L = chunk_length(S, chunk)
-    if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, A, Bm, Cm)
     shape = (f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
              f"Bm {tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
     if (dt.shape != (B, S, H) or A.shape != (H,) or Bm.shape != (B, S, N)

@@ -1,6 +1,6 @@
-"""Shared layer math: the port of ``repro.models.layers``: norms, RoPE
-and MLPs of the transformer stack, and the NoisyNet layers (Fortunato et
-al. 2018) of the Q-network.
+"""Shared layer math: the port of ``repro.models.layers``: norms, RoPE,
+MLPs and the cross-entropy loss of the transformer stack, and the
+NoisyNet layers (Fortunato et al. 2018) of the Q-network.
 
 ``rms_norm`` goes through the RMSNorm kernel op (``kernels/ops``); the
 MLP products are plain ``torch.matmul`` calls in the input's type, as the
@@ -92,6 +92,27 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
     h = torch.matmul(x, w_up.to(dt)) + b_up.to(dt)
     h = F.gelu(h, approximate="tanh")
     return torch.matmul(h, w_down.to(dt)) + b_down.to(dt)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: int,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE, the reference's: padded vocab entries of
+    ``logits`` are set to -1e9 so that the normalizer ignores them, the
+    log-sum-exp is taken in float32, and with ``mask`` the mean is over
+    max(sum(mask), 1). The label's logit is picked by a one-hot product,
+    so that its backward is deterministic on the card."""
+    vpad = logits.shape[-1]
+    logits = logits.to(torch.float32)
+    ids = torch.arange(vpad, device=logits.device)
+    if vpad != vocab:
+        logits = torch.where(ids >= vocab, -1e9, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    hot = (labels.long()[..., None] == ids).to(torch.float32)
+    nll = lse - torch.sum(logits * hot, dim=-1)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def factorized_noise(key: torch.Tensor, n: int) -> torch.Tensor:

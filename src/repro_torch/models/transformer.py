@@ -26,7 +26,18 @@ compute dtype: the reference stores them in float32 but reads them only
 through ``.astype(cdtype)``, so the numbers are the same and a bfloat16
 model takes half the memory. Constant leaves (norm gains, the SSM's
 A_log, dt_bias and D, biases) and the sLSTM's recurrent R, which the
-reference reads in float32, stay float32. CROSS_ATTN blocks, MoE MLPs,
+reference reads in float32, stay float32. Training keeps every leaf in
+float32 (``init_params(..., param_dtype=torch.float32)``, the
+reference's ``TrainConfig.param_dtype``): the forward casts them on
+read, and AdamW's small updates are not lost to bfloat16 rounding. A
+float32 draw cast to bfloat16 is the bfloat16 leaf bit for bit.
+
+A forward that records a gradient looks tokens up in the embedding by a
+one-hot product (the same values: one term of each sum is not zero), so
+that its backward is a product too and deterministic on the card, not a
+scatter-add; without a gradient it gathers rows. ``ExecConfig.remat``
+checkpoints each superblock (``torch.utils.checkpoint``), as the
+reference checkpoints its scanned body. CROSS_ATTN blocks, MoE MLPs,
 learned positions and the encoder raise NotImplementedError naming
 their ROADMAP.md item; decode caches are updated in place.
 """
@@ -36,6 +47,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
                                 ExecConfig, ModelConfig)
@@ -155,10 +167,12 @@ def model_param_spec(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
 
 
 def init_params(cfg: ModelConfig, key: torch.Tensor,
-                ec: ExecConfig = DEFAULT_EXEC) -> Tree:
+                ec: ExecConfig = DEFAULT_EXEC,
+                param_dtype: Optional[torch.dtype] = None) -> Tree:
     """The reference's init for ``key`` on key's device; drawn leaves are
-    stored in the compute dtype (see the module docstring)."""
-    spec = P.drawn_in(model_param_spec(cfg, ec), ec.cdtype,
+    stored in ``param_dtype`` (float32 for training), by default in the
+    compute dtype (see the module docstring)."""
+    spec = P.drawn_in(model_param_spec(cfg, ec), param_dtype or ec.cdtype,
                       keep=XL.F32_LEAVES)
     return P.init_tree(spec, key)
 
@@ -281,6 +295,35 @@ def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["unembed"].to(x.dtype))
 
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``tokens`` of the embedding ``table`` in ``dtype``: a gather,
+    or, where the table records a gradient, a one-hot product (see the
+    module docstring)."""
+    rows = table.to(dtype)
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return rows[tokens.long()]
+    ids = torch.arange(rows.shape[0], device=tokens.device)
+    return torch.matmul((tokens.long()[..., None] == ids).to(dtype), rows)
+
+
+def _superblock(x: torch.Tensor, lp: Tree, shared: Optional[Tree], rope,
+                cfg: ModelConfig, ec: ExecConfig,
+                cache_layers: Optional[Tree] = None, i: int = 0
+                ) -> torch.Tensor:
+    """One superblock of the full-sequence path; with ``cache_layers``,
+    each block's decode-cache entry is written into superblock ``i``'s
+    slot."""
+    for j, kind in enumerate(cfg.superblock):
+        name = f"b{j}_{kind}"
+        bp = shared if _shared(cfg, kind) else lp[name]
+        x, e = _apply_block(kind, bp, x, rope, cfg, ec,
+                            collect=cache_layers is not None)
+        if cache_layers is not None:
+            _store(_layer(cache_layers[name], i), e)
+    return x
+
+
 def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
             tokens: torch.Tensor, memory: Optional[torch.Tensor] = None,
             collect_cache_len: Optional[int] = None):
@@ -297,7 +340,7 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
                                   f"1 {NOT_PORTED[CROSS_ATTN]}")
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"].to(ec.cdtype)[tokens.long()]
+    x = embed_tokens(params["embed"], tokens, ec.cdtype)
     rope = None
     if ATTN in cfg.superblock:
         positions = torch.arange(S, dtype=torch.int32, device=dev)
@@ -310,15 +353,15 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
         cache = init_cache(cfg, ec, B, collect_cache_len, device=dev)
         cache["pos"].fill_(S)
     shared = params.get("shared_attn")
+    remat = ec.remat and cache is None and torch.is_grad_enabled()
     for i in range(cfg.n_superblocks):
         lp = _layer(params["layers"], i)
-        for j, kind in enumerate(cfg.superblock):
-            name = f"b{j}_{kind}"
-            bp = shared if _shared(cfg, kind) else lp[name]
-            x, e = _apply_block(kind, bp, x, rope, cfg, ec,
-                                collect=cache is not None)
-            if cache is not None:
-                _store(_layer(cache["layers"][name], i), e)
+        if remat:
+            x = checkpoint(_superblock, x, lp, shared, rope, cfg, ec,
+                           use_reentrant=False)
+        else:
+            x = _superblock(x, lp, shared, rope, cfg, ec,
+                            None if cache is None else cache["layers"], i)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)
     # the reference averages the blocks' auxiliary (MoE) losses: 0 here

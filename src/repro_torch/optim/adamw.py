@@ -21,7 +21,8 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from repro_torch.optim.base import Optimizer, clip_by_global_norm, per_leaf
+from repro_torch.optim.base import (Optimizer, clip_by_global_norm, flatten,
+                                    per_leaf, unflatten)
 from repro_torch.rng import sqrt_f32
 
 
@@ -30,22 +31,25 @@ def adamw(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
           weight_decay: float = 0.1,
           grad_clip: Optional[float] = 1.0) -> Optimizer:
     def init(params):
+        flat = flatten(params)
+
         def zeros():
-            return {k: torch.zeros_like(p, dtype=torch.float32)
-                    for k, p in params.items()}
-        dev = next(iter(params.values())).device
+            return unflatten({k: torch.zeros_like(p, dtype=torch.float32)
+                              for k, p in flat.items()})
+        dev = next(iter(flat.values())).device
         return {"m": zeros(), "v": zeros(),
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     def update(grads, state, params):
         step = state["step"] + 1
         lr = learning_rate(step) if callable(learning_rate) else learning_rate
-        g32 = {k: g.to(torch.float32) for k, g in grads.items()}
+        g32 = {k: g.to(torch.float32) for k, g in flatten(grads).items()}
         if grad_clip is not None:
+            # a dict keyed by paths is a flat tree: it clips as one
             g32, _ = clip_by_global_norm(g32, grad_clip, step.dim())
-        m = {k: b1 * state["m"][k] + (1 - b1) * g for k, g in g32.items()}
-        v = {k: b2 * state["v"][k] + (1 - b2) * g * g
-             for k, g in g32.items()}
+        m0, v0, p0 = flatten(state["m"]), flatten(state["v"]), flatten(params)
+        m = {k: b1 * m0[k] + (1 - b1) * g for k, g in g32.items()}
+        v = {k: b2 * v0[k] + (1 - b2) * g * g for k, g in g32.items()}
         t = step.to(torch.float32)
         bc1 = 1 - torch.pow(torch.full_like(t, b1), t)
         bc2 = 1 - torch.pow(torch.full_like(t, b2), t)
@@ -55,8 +59,9 @@ def adamw(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
         updates = {
             k: -at(lr, k) * ((m[k] / at(bc1, k))
                              / (sqrt_f32(v[k] / at(bc2, k)) + eps)
-                             + weight_decay * params[k].to(torch.float32))
+                             + weight_decay * p0[k].to(torch.float32))
             for k in g32}
-        return updates, {"m": m, "v": v, "step": step}
+        return unflatten(updates), {"m": unflatten(m), "v": unflatten(v),
+                                    "step": step}
 
     return Optimizer(init, update)

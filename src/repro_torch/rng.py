@@ -22,7 +22,13 @@ The algorithms follow jax's ``_src/prng.py`` and ``_src/random.py``:
 * ``normal`` is ``sqrt(2) * erfinv(u)`` for ``u`` uniform on
   ``[nextafter(-1, 0), 1)``, with erfinv by the polynomial XLA uses for
   float32. Its ``log1p`` is torch's, not XLA's, so ``normal`` agrees with
-  jax to a few ulps, not bit for bit.
+  jax to a few ulps, not bit for bit;
+* ``gumbel`` is jax's default ("low") mode, ``-log(-log(u))`` for ``u``
+  uniform on ``[tiny, 1)``, and ``categorical`` the Gumbel-max
+  ``argmax(logits + gumbel)``. torch's float32 ``log`` is within an ulp
+  of XLA's, so ``gumbel`` agrees with jax to 2 ulps of max(|g|, 1)
+  (``tests/test_torch_actor_learner.py``), and a categorical draw is
+  jax's wherever its top two scores are further apart than that.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform",
-           "randint", "normal", "choice", "threefry2x32", "sqrt_f32"]
+           "randint", "normal", "gumbel", "categorical", "choice",
+           "threefry2x32", "sqrt_f32"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -207,3 +214,20 @@ def normal(key: torch.Tensor, shape: Sequence[int] = (),
     :func:`random_bits`."""
     u = uniform(key, shape, _NORMAL_LO, 1.0, offset)
     return erfinv(u) * _SQRT2
+
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, jax's default mode."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical`` with replacement and no ``shape``: one
+    int32 draw per distribution along ``axis`` of float32 ``logits``,
+    the first maximum of ``logits + gumbel``."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=axis).to(torch.int32)
