@@ -13,10 +13,11 @@ Phases, each printing its own lines:
    segment tree bit for bit (P up to 2^20), the C51 projection to 1e-6
    and bit for bit against the CPU replay of its schedule, and the three
    with R = 4 and 16 replicas in one launch each (16384 leaves per tree)
-   bit for bit against R one-tree plain calls, RMSNorm
-   (prefill and decode rows at the serve paths' widths 5120, 2560, 1536
-   and 768), flash attention and decode attention to 2e-4 in float32
-   and 2e-2 in bfloat16;
+   bit for bit against R one-tree plain calls, RMSNorm, flash attention
+   and decode attention (RMSNORM_CASES, FLASH_CASES and DECODE_CASES: the
+   serve and train paths' shapes, every arch's, and edge cases) to 2e-4
+   in float32 and 2e-2 in bfloat16 (decode attention's absolute part
+   scaled by its output's largest magnitude where that is below 1);
 4. kernel times from CUDA events (median of up to 200 launches) beside
    the plain versions' times, a one-call PyTorch yardstick where one
    exists, and the bound the card's peak rates set; an empty kernel
@@ -160,7 +161,38 @@ Phases, each printing its own lines:
    and both forms on reduced zamba2 in float32 for 2 cycles of one
    update each against the CPU path (tokens, cursor, size and step
    equal, the AdamW moments to 1e-3 of each leaf's largest, parameters
-   as in phase 20).
+   as in phase 20);
+22. MoE serving: qwen2-moe-a2.7b at full width and depth in bf16 (60
+   routed experts padded to 64, 4 shared; batch 8, a 1024-token fused
+   prefill, 64 greedy tokens) through the serve launcher's function, with
+   init, prefill, decode and memory figures, each kernel's launches
+   against the config's count, a profile of a prefill and of 4 decode
+   steps, and one more step under CUDA's sync check; then reduced
+   granite-moe-1b-a400m and qwen2-moe-a2.7b in float32 on the card and
+   on the CPU (a router margin of 1e-5 asserted first: tokens equal,
+   prefill logits within 1e-3, two card runs bitwise equal, caches
+   included; fused and ring);
+23. MoE training: granite-moe-1b-a400m at full width and depth through
+   the train launcher's function (bf16 compute, float32 parameters,
+   batch 8, sequence 128, MOE_TRAIN_STEPS steps): finite losses with an
+   auxiliary loss above 0, launches per step, peak memory, two runs of a
+   step bitwise equal; then its reduced first step on the card against
+   the CPU as in phase 20;
+24. cross-attention serving: whisper-tiny at full size (a 1500-frame
+   encoder, prompt 64, 64 tokens) and llama-3.2-vision-11b at full width
+   with its 1601-patch memory, cut to VLM_SUPERBLOCKS of 8 superblocks
+   (batch 8, prompt 1024, 64 tokens), with each kernel's launches
+   (decode attention over the cross caches included) and the profiles of
+   phase 22 (whisper's decode step also under the sync check); reduced whisper
+   and llama (its gates set nonzero) against the CPU as in phase 22;
+25. whisper-tiny training at full size (each step's memory drawn as the
+   launcher draws it), as in phase 23, bitwise on a rerun;
+26. parity at the paths' cases: phases 8-25 record, at the ``kernels/ops``
+   entry points the models call, the case (shape, dtypes, options) of
+   every call to RMSNorm, flash attention and decode attention on the
+   card, and check that the calls recorded are the launches counted;
+   each case phase 3 did not hold is held here against the plain
+   version on fresh random inputs, and printed with its error.
    Each phase prints its wall time, and the run its total; phases 15-18
    keep their checkpoints in a temporary directory they remove.
 
@@ -172,14 +204,14 @@ head group, S below the chunk, S no multiple of 16, warm states, several
 batch tiles, the SSD scan's cluster and scalar bodies, the sLSTM's
 cluster body and its stream body at Pd 512), prints both scans' plans at
 their paths' shapes and checks that two launches of each there give the
-same bits; flash attention
-at zamba2's head dim 80 (the wgmma body, with and without a window) and
-decode attention with one query head per KV head; decode attention at
-cache lengths on and around the boundaries of the split the kernel picks
-(against the plain version and the emulation of its split); and that
-two launches of each attention kernel give the same bits at both paths'
-shapes. Phase 4 times them, RMSNorm at the prefill's and the decode
-step's rows, prints each attention kernel's and RMSNorm's time as a
+same bits; flash attention at zamba2's head dim 80 (the wgmma body,
+with and without a window) and decode attention with one query head per
+KV head; decode attention at cache lengths on and around the boundaries
+of the split the kernel picks (against the plain version and the
+emulation of its split), the cross caches' included; and that two
+launches of each attention kernel give the same bits at the serve
+paths' shapes. Phase 4 times them, RMSNorm at the prefill's and the
+decode step's rows, prints each attention kernel's and RMSNorm's time as a
 ratio to SDPA's or F.rms_norm's, and times the sLSTM cluster body's
 serial floor (its DSMEM exchange and cluster barrier alone, over the
 path's 1024 steps).
@@ -190,7 +222,8 @@ of phase 8 for RMSNorm and the two attention kernels, phase 10's zamba2
 run for the SSD scan and its xlstm run for the sLSTM scan), with all
 counts set to 0
 just before that run; ``launches_by_path`` adds each kernel's launches
-per step or cycle on phases 20-21's paths. The line
+per step or cycle on phases 20-21's paths, per step on phases 23 and
+25's and per run on phases 22 and 24's. The line
 before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
 printing it. Without a CUDA device, or without the repository's src/
@@ -236,13 +269,6 @@ RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-125m")
 SSM_PATH = (SERVE_BATCH, SERVE_PROMPT, 80, 64, 64, 128)
 SLSTM_PATH = (SERVE_BATCH, SERVE_PROMPT, 4, 192)
 LLM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# RMSNorm's (rows, D) in parity: the serve paths' widths (mistral and
-# zamba2's Mamba2 inner 5120, zamba2 2560, xlstm's mLSTM inner 1536 and
-# 768) at prefill and decode rows, a row of 12 vectors, and a width that
-# is no multiple of the vector
-RMSNORM_CASES = tuple((rows, D) for D in (5120, 2560, 1536, 768)
-                      for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH)
-                      ) + ((7, 96), (5, 4097))
 TIMED_RUNS = 200
 # the PER tree build's leaf counts and the descent's (P, n) in parity
 TREE_BUILD_CASES = (1, 2, 8, 2048, 16384, 1 << 20)
@@ -274,6 +300,73 @@ SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 100, 10
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-125m", 8, 128, 4
 AL_ARCH, AL_SUPERBLOCKS, CUT_TRAIN_STEPS, AL_CYCLES = "zamba2-2.7b", 3, 2, 3
 AL_STREAMS, AL_SEQ = 8, 8 + 24
+# phases 22-25: the MoE serve path (qwen2-moe-a2.7b at full size) and
+# train path (granite-moe-1b-a400m at full size, steps), whisper-tiny at
+# full size (its decoder's prompt and tokens inside its 448-token
+# context; train steps) and llama-3.2-vision-11b at full width, cut to
+# VLM_SUPERBLOCKS of its 8 superblocks (every superblock is the same)
+MOE_SERVE_ARCH = "qwen2-moe-a2.7b"
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 3
+WHISPER_ARCH, WHISPER_PROMPT, WHISPER_GEN = "whisper-tiny", 64, 64
+CROSS_TRAIN_STEPS = 3
+VLM_ARCH, VLM_SUPERBLOCKS = "llama-3.2-vision-11b", 2
+# whisper-tiny's encoder positions (its 3000 mel frames halved)
+WHISPER_FRAMES = 1500
+# RMSNorm's (rows, D) in parity: the serve paths' widths (mistral and
+# zamba2's Mamba2 inner 5120, zamba2 2560, xlstm's mLSTM inner 1536 and
+# 768, llama-3.2-vision 4096, qwen2-moe 2048, granite-moe 1024, whisper
+# 384) at prefill and decode rows; whisper's encoder and decoder prompt;
+# the train paths' rows at granite-moe's and whisper's widths; a row of
+# 12 vectors, and a width that is no multiple of the vector
+RMSNORM_CASES = tuple((rows, D) for D in (5120, 2560, 1536, 768, 4096,
+                                          2048, 1024, 384)
+                      for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH)
+                      ) + ((SERVE_BATCH * WHISPER_FRAMES, 384),
+                           (SERVE_BATCH * WHISPER_PROMPT, 384),
+                           (TRAIN_BATCH * TRAIN_SEQ, 1024),
+                           (TRAIN_BATCH * TRAIN_SEQ, 384),
+                           (TRAIN_BATCH * WHISPER_FRAMES, 384),
+                           (7, 96), (5, 4097))
+# flash attention's (B, S, H, Hkv, D) in parity, each also with a window
+# of 64 below the serve prompt's length: edge cases (S 300, GQA 12, MQA
+# at D 80, D 64 and 96); the serve paths' prefills (mistral-nemo and
+# llama-3.2-vision, zamba2, qwen2-moe's G 1 at D 128, whisper's decoder)
+# and the train paths' (granite-moe, whisper)
+FLASH_CASES = ((2, 300, 32, 8, 128), (1, 256, 24, 2, 128), (1, 128, 4, 1, 80),
+               (2, 200, 8, 2, 64), (2, 300, 32, 32, 80), (1, 192, 8, 2, 96),
+               (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128),
+               (SERVE_BATCH, SERVE_PROMPT, 32, 32, 80),
+               (SERVE_BATCH, SERVE_PROMPT, 16, 16, 128),
+               (SERVE_BATCH, WHISPER_PROMPT, 6, 6, 64),
+               (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64),
+               (TRAIN_BATCH, TRAIN_SEQ, 6, 6, 64))
+# decode attention's (B, H, Hkv, L, D) in parity, each at the cache
+# lengths listed: mistral-nemo and llama-3.2-vision's self caches, a
+# wrapped 16-slot ring, GQA 12, zamba2's attention, qwen2-moe's (G 1 at D
+# 128), whisper's decoder, and the cross caches (whisper's 1500 frames at
+# D 64 and G 1; the VLM's 1601 patches, odd L, G 4)
+SERVE_CACHE = SERVE_PROMPT + SERVE_GEN
+DECODE_CASES = (((SERVE_BATCH, 32, 8, SERVE_CACHE, 128),
+                 (1, 517, SERVE_CACHE)),
+                ((SERVE_BATCH, 32, 8, RING_WINDOW, 128), (40,)),
+                ((2, 24, 2, SERVE_CACHE, 128), (517,)),
+                ((SERVE_BATCH, 32, 32, SERVE_CACHE, 80), (SERVE_CACHE,)),
+                ((SERVE_BATCH, 16, 16, SERVE_CACHE, 128),
+                 (1, 517, SERVE_CACHE)),
+                ((SERVE_BATCH, 6, 6, WHISPER_PROMPT + WHISPER_GEN, 64),
+                 (1, WHISPER_PROMPT + WHISPER_GEN)),
+                ((SERVE_BATCH, 6, 6, WHISPER_FRAMES, 64), (WHISPER_FRAMES,)),
+                ((SERVE_BATCH, 32, 8, 1601, 128), (1601,)))
+# the cross caches' (B, H, Hkv, D, L), also at the decode split's
+# boundaries
+CROSS_CACHES = ((SERVE_BATCH, 6, 6, 64, WHISPER_FRAMES),
+                (SERVE_BATCH, 32, 8, 128, 1601))
+# the three LLM kernels: the cases (``_kernel_case``) phase 3 held, and
+# those the paths of phases 8-25 launched, with their calls counted
+LLM_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+PARITY_DONE: set = set()
+PATH_CASES: set = set()
+PATH_CALLS = dict.fromkeys(LLM_KERNELS, 0)
 # phase 19's cases whose forward and backward are also timed
 GRAD_TIMED = ((AL_STREAMS, AL_SEQ - 1, 32, 32, 80, None),
               (AL_STREAMS * (AL_SEQ - 1), 2560),
@@ -1746,6 +1839,7 @@ def kernel_table():
 def reset_launches() -> None:
     for fn, _, _ in kernel_table().values():
         fn.launches = 0
+    PATH_CALLS.update(dict.fromkeys(LLM_KERNELS, 0))
 
 
 def read_launches() -> dict:
@@ -1756,143 +1850,204 @@ def _randn(gen: torch.Generator, shape, dtype, dev):
     return torch.randn(shape, generator=gen).to(device=dev, dtype=dtype)
 
 
-def _llm_check(name, got, want, dtype, case) -> float:
+def _llm_check(name, got, want, dtype, case,
+               to_output: bool = False) -> float:
+    """``got`` against ``want`` at LLM_TOL[dtype], absolute and relative;
+    ``to_output``: in bfloat16 the absolute part scaled by the largest
+    magnitude of ``want`` where that is below 1 (decode attention over a
+    long cache averages its values down to a few hundredths). Returns
+    the max abs error."""
     torch.cuda.synchronize()
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{name} at {case}: {got.dtype} {tuple(got.shape)}, plain "
           f"{want.dtype} {tuple(want.shape)}")
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
-    tol = LLM_TOL[dtype]
-    check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=tol,
+    tol = atol = LLM_TOL[dtype]
+    if to_output and dtype == torch.bfloat16:
+        atol = tol * min(1.0, float(w.abs().max()))
+    check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=atol,
                                                             rtol=tol),
           f"{name} differs from the plain version at {case} {dtype}: max "
-          f"abs err {err} (tolerance {tol})")
+          f"abs err {err} (tolerance {atol} + {tol} relative)")
+    return err
+
+
+def _kernel_case(name: str, a: dict) -> tuple:
+    """A call to one of LLM_KERNELS' wrappers, its arguments ``a`` by
+    name, as the case it makes: the kernel, its shape (RMSNorm's rows
+    folded into one axis), dtypes and options. Decode attention's cache
+    length is left out: on the paths it is a device scalar, which
+    reading would synchronise."""
+    if name == "rmsnorm":
+        x = a["x"]
+        return (name, x.numel() // x.shape[-1], x.shape[-1], x.dtype,
+                a["gamma"].dtype, float(a["eps"]))
+    q = a["q"]
+    if name == "flash_attention":
+        B, S, H, D = q.shape
+        return (name, B, S, H, a["k"].shape[2], D, q.dtype, a["causal"],
+                a["window"])
+    B, _, H, D = q.shape
+    _, Hkv, L, _ = a["k_cache"].shape
+    return (name, B, H, Hkv, L, D, q.dtype)
+
+
+def _llm_case(case: tuple, gen, dev, ns=()) -> float:
+    """One case (``_kernel_case``) on fresh random inputs, the wrapper
+    against its plain version (``_llm_check``); decode attention at each
+    cache length of ``ns`` (by default 1, half of L and L), its caches a
+    slice of a stack as a superblock's are. Adds the case to PARITY_DONE
+    and returns the max abs error."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    name = case[0]
+    if name == "rmsnorm":
+        rows, D, dtype, g_dtype, eps = case[1:]
+        x = _randn(gen, (rows, D), dtype, dev)
+        g = _randn(gen, (D,), g_dtype, dev)
+        err = _llm_check(name, rn.rmsnorm(x, g, eps),
+                         rn.rmsnorm_plain(x, g, eps), dtype, case)
+    elif name == "flash_attention":
+        B, S, H, Hkv, D, dtype, causal, window = case[1:]
+        q = _randn(gen, (B, S, H, D), dtype, dev)
+        k = _randn(gen, (B, S, Hkv, D), dtype, dev)
+        v = _randn(gen, (B, S, Hkv, D), dtype, dev)
+        err = _llm_check(name, fa.flash_attention(q, k, v, causal, window),
+                         fa.flash_attention_plain(q, k, v, causal, window),
+                         dtype, case)
+    else:
+        B, H, Hkv, L, D, dtype = case[1:]
+        q = _randn(gen, (B, 1, H, D), dtype, dev)
+        kc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
+        vc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
+        err = 0.0
+        for n in ns or sorted({1, (L + 1) // 2, L}):
+            nd = torch.full((), n, dtype=torch.int32, device=dev)
+            err = max(err, _llm_check(
+                name, da.decode_attention(q, kc, vc, nd),
+                da.decode_attention_plain(q, kc, vc, nd), dtype,
+                case + (n,), to_output=True))
+    PARITY_DONE.add(case)
     return err
 
 
 def phase_llm_parity(dev):
-    """The serve path's three kernels against their plain versions, in
-    float32 and bfloat16; returns each one's max abs error in bf16 at
-    the serve path's own shapes."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
+    """The serve and train paths' three kernels against their plain
+    versions at RMSNORM_CASES, FLASH_CASES and DECODE_CASES, in float32
+    and bfloat16; returns the max abs errors in bf16 at the paths' own
+    shapes (each kernel's under its name at mistral-nemo's)."""
     gen = torch.Generator().manual_seed(2)
+    bf = torch.bfloat16
+    labels = {
+        ("rmsnorm", SERVE_BATCH * SERVE_PROMPT, 5120): "rmsnorm",
+        ("rmsnorm", SERVE_BATCH * WHISPER_FRAMES, 384):
+            "rmsnorm whisper encoder",
+        ("flash_attention", SERVE_BATCH, SERVE_PROMPT, 32, 8, 128):
+            "flash_attention",
+        ("flash_attention", SERVE_BATCH, SERVE_PROMPT, 32, 32, 80):
+            "flash_attention D80",
+        ("flash_attention", SERVE_BATCH, SERVE_PROMPT, 16, 16, 128):
+            "flash_attention G1 D128",
+        ("flash_attention", TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64):
+            "flash_attention granite-moe train",
+        ("decode_attention", SERVE_BATCH, 32, 8, SERVE_CACHE, 128):
+            "decode_attention",
+        ("decode_attention", SERVE_BATCH, 32, 32, SERVE_CACHE, 80):
+            "decode_attention D80",
+        ("decode_attention", SERVE_BATCH, 16, 16, SERVE_CACHE, 128):
+            "decode_attention G1 D128",
+        ("decode_attention", SERVE_BATCH, 6, 6, WHISPER_FRAMES, 64):
+            "decode_attention L1500",
+        ("decode_attention", SERVE_BATCH, 32, 8, 1601, 128):
+            "decode_attention L1601"}
     errs = {}
-    path = {"rmsnorm": (SERVE_BATCH * SERVE_PROMPT, 5120),
-            "flash_attention": (SERVE_BATCH, SERVE_PROMPT, 32, 8, 128, None),
-            "decode_attention": (SERVE_BATCH, 32, 8, SERVE_PROMPT + SERVE_GEN,
-                                 128, SERVE_PROMPT + SERVE_GEN)}
-    for dtype in (torch.float32, torch.bfloat16):
-        for rows, D in RMSNORM_CASES:
-            x = _randn(gen, (rows, D), dtype, dev)
-            g = _randn(gen, (D,), torch.float32, dev)
-            err = _llm_check("rmsnorm", rn.rmsnorm(x, g, 1e-5),
-                             rn.rmsnorm_plain(x, g, 1e-5), dtype, (rows, D))
-            if (rows, D) == path["rmsnorm"] and dtype == torch.bfloat16:
-                errs["rmsnorm"] = err
-        for B, S, H, Hkv, D in ((2, 300, 32, 8, 128), (1, 256, 24, 2, 128),
-                                (1, 128, 4, 1, 80), (2, 200, 8, 2, 64),
-                                (2, 300, 32, 32, 80), (1, 192, 8, 2, 96),
-                                path["flash_attention"][:5],
-                                (SERVE_BATCH, SERVE_PROMPT, 32, 32, 80)):
-            q = _randn(gen, (B, S, H, D), dtype, dev)
-            k = _randn(gen, (B, S, Hkv, D), dtype, dev)
-            v = _randn(gen, (B, S, Hkv, D), dtype, dev)
-            for window in (None, 64):
-                if S == SERVE_PROMPT and window is not None:
-                    continue
-                err = _llm_check(
-                    "flash_attention", fa.flash_attention(q, k, v, True, window),
-                    fa.flash_attention_plain(q, k, v, True, window), dtype,
-                    (B, S, H, Hkv, D, window))
-                if ((B, S, H, Hkv, D, window) == path["flash_attention"]
-                        and dtype == torch.bfloat16):
-                    errs["flash_attention"] = err
-                if S == SERVE_PROMPT and D == 80 and dtype == torch.bfloat16:
-                    errs["flash_attention D80"] = err
-            del q, k, v
-        for B, H, Hkv, L, D, n in ((8, 32, 8, 1088, 128, 1),
-                                   (8, 32, 8, 1088, 128, 517),
-                                   path["decode_attention"],
-                                   (8, 32, 8, 16, 128, 40),   # ring, wrapped
-                                   (2, 24, 2, 1088, 128, 517),
-                                   (8, 32, 32, 1088, 80, 1088)):
-            q = _randn(gen, (B, 1, H, D), dtype, dev)
-            kc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
-            vc = _randn(gen, (2, B, Hkv, L, D), dtype, dev)[1]
-            nd = torch.full((), n, dtype=torch.int32, device=dev)
-            err = _llm_check("decode_attention",
-                             da.decode_attention(q, kc, vc, nd),
-                             da.decode_attention_plain(q, kc, vc, nd), dtype,
-                             (B, H, Hkv, L, D, n))
-            if (B, H, Hkv, L, D, n) == path["decode_attention"] and \
-                    dtype == torch.bfloat16:
-                errs["decode_attention"] = err
-            if D == 80 and B == 8 and dtype == torch.bfloat16:
-                errs["decode_attention D80"] = err
+    for dtype in (torch.float32, bf):
+        cases = [(("rmsnorm", rows, D, dtype, torch.float32, 1e-5), ())
+                 for rows, D in RMSNORM_CASES]
+        cases += [(("flash_attention", *shape, dtype, True, window), ())
+                  for shape in FLASH_CASES for window in (None, 64)
+                  if window is None or shape[1] < SERVE_PROMPT]
+        cases += [(("decode_attention", *shape, dtype), ns)
+                  for shape, ns in DECODE_CASES]
+        for case, ns in cases:
+            err = _llm_case(case, gen, dev, ns)
+            label = labels.get(case[:case.index(dtype)])
+            if dtype == bf and label is not None and (
+                    case[0] != "flash_attention" or case[-1] is None):
+                errs[label] = err
     n_bounds = _decode_split_boundaries(gen, dev)
     _attention_bitwise(gen, dev)
     say("parity rmsnorm, flash_attention, decode_attention: within 2e-4 "
-        "(float32) and 2e-2 (bfloat16) at the serve path's shapes, RMSNorm "
-        f"at {len(RMSNORM_CASES)} (rows, D) (prefill and decode at widths "
-        "5120, 2560, 1536 and 768, ragged and scalar rows), and at "
-        "S=300, GQA 12, MQA with D=80, D 64 and 96, window 64 (also at "
-        "D 80), cache_len 1/517/1088, a wrapped ring, zamba2's attention "
-        f"(H = Hkv = 32, D 80) and {n_bounds} cache lengths at the decode "
-        "split's boundaries; max abs err in bf16 at the paths' shapes: "
+        "(float32) and 2e-2 (bfloat16; decode attention's absolute part "
+        "scaled by its output's largest magnitude below 1) at "
+        f"{len(RMSNORM_CASES)} RMSNorm (rows, D) (prefill and decode rows at "
+        "widths 5120, 4096, 2560, 2048, 1536, 1024, 768 and 384, whisper's "
+        "encoder and prompt, the train paths' rows, ragged and scalar "
+        f"rows), {len(FLASH_CASES)} flash attention shapes (edge cases, "
+        "the serve paths' prefills, qwen2-moe's G 1 at D 128, whisper's, "
+        "the train paths'; window 64 below S 1024) and "
+        f"{len(DECODE_CASES)} decode attention shapes (cache_len 1, 517, "
+        "1088, a wrapped ring, zamba2's, qwen2-moe's, whisper's self cache, "
+        "the cross caches L 1500 at D 64 and G 1 and L 1601 at G 4), and "
+        f"{n_bounds} cache lengths at the decode split's boundaries; max "
+        "abs err in bf16 at the paths' shapes: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
 
 
-# the two attention shapes of the serve paths: mistral-nemo-12b (GQA 4,
-# D 128) and zamba2-2.7b's shared attention (H = Hkv = 32, D 80)
+# the attention shapes of the serve paths' prefills: mistral-nemo-12b
+# and llama-3.2-vision-11b (GQA 4, D 128), zamba2-2.7b's shared attention
+# (H = Hkv = 32, D 80) and qwen2-moe-a2.7b (H = Hkv = 16, D 128)
 ATTN_PATHS = {"mistral": (SERVE_BATCH, 32, 8, 128),
-              "zamba2": (SERVE_BATCH, 32, 32, 80)}
+              "zamba2": (SERVE_BATCH, 32, 32, 80),
+              "qwen2-moe": (SERVE_BATCH, 16, 16, 128)}
 
 
 def _decode_split_boundaries(gen, dev) -> int:
     """Decode attention (bf16) at the paths' shapes with cache_len on and
-    around each boundary of the split the kernel picks for L = 1088 and
-    for a 16-slot ring, against the plain version and the emulation of
-    the kernel's split and combine. Returns the number of cases."""
+    around each boundary of the split the kernel picks for L = 1088, for
+    a 16-slot ring and for the cross caches, against the plain version
+    and the emulation of the kernel's split and combine. Returns the
+    number of cases."""
     from repro_torch.kernels import decode_attention as da
     bf = torch.bfloat16
     cases = 0
-    for B, H, Hkv, D in ATTN_PATHS.values():
-        for L in (SERVE_PROMPT + SERVE_GEN, RING_WINDOW):
-            splits, chunk = da.kernel_split_plan(B, H, Hkv, L, D, bf)
-            check(chunk == da.split_chunk(L, splits),
-                  f"decode split of L={L}: chunk {chunk}, the emulation's "
-                  f"{da.split_chunk(L, splits)}")
-            q = _randn(gen, (B, 1, H, D), bf, dev)
-            kc = _randn(gen, (B, Hkv, L, D), bf, dev)
-            vc = _randn(gen, (B, Hkv, L, D), bf, dev)
-            lens = {1, L - 1, L, L + 5}
-            for i in range(1, splits):
-                lens |= {i * chunk - 1, i * chunk, i * chunk + 1}
-            for n in sorted(lens):
-                nd = torch.full((), n, dtype=torch.int32, device=dev)
-                case = (B, H, Hkv, L, D, n, f"splits {splits}")
-                _llm_check("decode_attention", da.decode_attention(
-                    q, kc, vc, nd), da.decode_attention_plain(q, kc, vc, nd),
-                    bf, case)
-                _llm_check("decode_attention (emulated split)",
-                           da.decode_attention(q, kc, vc, nd),
-                           da.decode_attention_split(q, kc, vc, n, splits),
-                           bf, case)
-                cases += 1
+    shapes = [(*shape, L) for shape in ATTN_PATHS.values()
+              for L in (SERVE_CACHE, RING_WINDOW)] + list(CROSS_CACHES)
+    for B, H, Hkv, D, L in shapes:
+        splits, chunk = da.kernel_split_plan(B, H, Hkv, L, D, bf)
+        check(chunk == da.split_chunk(L, splits),
+              f"decode split of L={L}: chunk {chunk}, the emulation's "
+              f"{da.split_chunk(L, splits)}")
+        q = _randn(gen, (B, 1, H, D), bf, dev)
+        kc = _randn(gen, (B, Hkv, L, D), bf, dev)
+        vc = _randn(gen, (B, Hkv, L, D), bf, dev)
+        lens = {1, L - 1, L, L + 5}
+        for i in range(1, splits):
+            lens |= {i * chunk - 1, i * chunk, i * chunk + 1}
+        for n in sorted(lens):
+            nd = torch.full((), n, dtype=torch.int32, device=dev)
+            case = (B, H, Hkv, L, D, n, f"splits {splits}")
+            _llm_check("decode_attention", da.decode_attention(
+                q, kc, vc, nd), da.decode_attention_plain(q, kc, vc, nd),
+                bf, case, to_output=True)
+            _llm_check("decode_attention (emulated split)",
+                       da.decode_attention(q, kc, vc, nd),
+                       da.decode_attention_split(q, kc, vc, n, splits),
+                       bf, case, to_output=True)
+            cases += 1
     return cases
 
 
 def _attention_bitwise(gen, dev) -> None:
     """Two launches of each attention kernel on the same inputs give the
-    same bits, at both paths' shapes (bf16)."""
+    same bits, at the serve paths' shapes (bf16)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     bf = torch.bfloat16
-    L = SERVE_PROMPT + SERVE_GEN
+    L = SERVE_CACHE
     for name, (B, H, Hkv, D) in ATTN_PATHS.items():
         q = _randn(gen, (B, SERVE_PROMPT, H, D), bf, dev)
         k = _randn(gen, (B, SERVE_PROMPT, Hkv, D), bf, dev)
@@ -1908,7 +2063,63 @@ def _attention_bitwise(gen, dev) -> None:
                           da.decode_attention(qd, kc, vc, nd)),
               f"decode_attention differs between two launches ({name})")
     say("determinism: flash and decode attention bitwise equal over two "
-        "launches at both paths' shapes (bf16)")
+        f"launches at the serve paths' shapes ({', '.join(ATTN_PATHS)}; "
+        "bf16)")
+
+
+@contextlib.contextmanager
+def _recorded_calls():
+    """While open, records the case (``_kernel_case``) of every call to
+    one of LLM_KERNELS on a CUDA tensor in PATH_CASES and counts it in
+    PATH_CALLS, at the ``kernels/ops`` entry points by which every model
+    module calls them (the comparisons here call the kernels' own
+    modules, and are not recorded)."""
+    import inspect
+    from repro_torch.kernels import ops
+    originals = {name: getattr(ops, name) for name in LLM_KERNELS}
+
+    def recording(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kw):
+            a = sig.bind(*args, **kw)
+            a.apply_defaults()
+            if args[0].is_cuda:
+                PATH_CASES.add(_kernel_case(name, a.arguments))
+                PATH_CALLS[name] += 1
+            return fn(*args, **kw)
+        return call
+    for name, fn in originals.items():
+        setattr(ops, name, recording(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+
+
+def _all_calls_recorded(launches: dict, label: str) -> None:
+    check(all(PATH_CALLS[n] == launches[n] for n in LLM_KERNELS),
+          f"{label}: calls recorded {PATH_CALLS}, launches {launches}")
+
+
+def phase_path_parity(dev) -> None:
+    """Phase 26: every case the paths of phases 8-25 gave the three LLM
+    kernels (``_recorded_calls``) that phase 3 did not hold, held against
+    the plain version on fresh random inputs, decode attention at cache
+    lengths 1, half of L and L."""
+    gen = torch.Generator().manual_seed(26)
+    todo = sorted(PATH_CASES - PARITY_DONE, key=repr)
+    check(len(PATH_CASES) > 0, "no call of the LLM kernels was recorded")
+    lines = [f"  {c[0]} {c[1:]}: max abs err {_llm_case(c, gen, dev):.3e}"
+             for c in todo]
+    per = {n: sum(c[0] == n for c in PATH_CASES) for n in LLM_KERNELS}
+    say(f"parity at the paths' cases: {len(PATH_CASES)} cases launched on "
+        f"the paths of phases 8-25 ({per}), {len(PATH_CASES) - len(todo)} "
+        f"held in phase 3, the other {len(todo)} held here against the "
+        "plain version (2e-4 float32, 2e-2 bfloat16):")
+    for line in lines:
+        say(line)
 
 
 def _library(fn):
@@ -2333,65 +2544,105 @@ def _serve_args(*extra):
     return serve.parse_args(["--arch", SERVE_ARCH, *extra])
 
 
-def phase_serve(dev):
-    """mistral-nemo-12b at full width, bf16, through the serve launcher's
-    functions: a fused prefill and greedy decode, then a ring run."""
+def _serve_full(arch: str, dev, cfg=None, prompt: int = SERVE_PROMPT,
+                gen: int = SERVE_GEN) -> dict:
+    """One arch at full width in bf16 through the serve launcher's
+    function (batch SERVE_BATCH, a fused prefill and greedy decode), each
+    kernel's launches against ``_serve_launches``, then a profile of one
+    prefill of fresh prompts and of 4 decode steps going on from the
+    run's cache (past its end the slot clamps to the last). ``cfg``: a
+    depth cut. Returns the run with its ``launches`` and ``peak_gb``."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import transformer as T
+    torch.cuda.empty_cache()
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    res = serve.run(_serve_args(
-        "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len",
-        str(SERVE_PROMPT), "--gen", str(SERVE_GEN)))
-    launches = read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg = res["cfg"]
-    toks = res["tokens"]
-    n_sb = cfg.n_superblocks
-    steps = SERVE_GEN - 1
-    want = {"segment_tree": 0, "categorical_projection": 0,
-            "rmsnorm": (2 * n_sb + 1) * (1 + steps), "flash_attention": n_sb,
-            "decode_attention": n_sb * steps, "ssm_scan": 0, "slstm_scan": 0,
-            "tree_build": 0}
-    check(launches == want, f"serve launches {launches}, expected {want}")
-    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
-          and toks.dtype == torch.int32 and toks.device.type == "cuda",
-          f"generated {toks.dtype} {tuple(toks.shape)} on {toks.device}")
-    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          "a generated token lies outside the vocabulary")
+    res = serve.run(serve.parse_args(
+        ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH),
+         "--prompt-len", str(prompt), "--gen", str(gen)]), cfg=cfg)
+    res["launches"] = read_launches()
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _all_calls_recorded(res["launches"], f"serve {arch}")
+    cfg, toks = res["cfg"], res["tokens"]
+    want = _serve_launches(cfg, gen - 1)
+    check(res["launches"] == want, f"serve {arch}: launches "
+          f"{res['launches']}, expected {want}")
+    check(tuple(toks.shape) == (SERVE_BATCH, gen) and toks.dtype ==
+          torch.int32 and toks.device.type == "cuda"
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"serve {arch}: generated {toks.dtype} {tuple(toks.shape)} on "
+          f"{toks.device}")
     check(bool(torch.isfinite(res["prefill_logits"]).all()),
-          "non-finite prefill logits")
-    say(f"serve {SERVE_ARCH} full width bf16 ({res['param_count']} "
-        f"parameters), batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
-        f"{SERVE_GEN} tokens: init {res['init_s']:.2f} s, prefill "
+          f"serve {arch}: non-finite prefill logits")
+    for path, t in _paths(res["cache"]["layers"], "cache"):
+        check(t.device.type == "cuda" and bool(torch.isfinite(t).all()),
+              f"serve {arch}: {path} is not finite on the card")
+    check(int(res["cache"]["pos"]) == prompt + gen - 1,
+          f"serve {arch}: the cache's position is wrong")
+    full = get_config(arch).n_superblocks
+    depth = (f"{cfg.n_superblocks} of {full} superblocks"
+             if cfg.n_superblocks != full else "full depth")
+    say(f"serve {arch} full width, {depth}, bf16 ({res['param_count']} "
+        f"parameters), batch {SERVE_BATCH}, prompt {prompt}, {gen} tokens"
+        + (f", memory {cfg.cross_memory_len}" if cfg.has_cross_attention
+           else "") + f": init {res['init_s']:.2f} s, prefill "
         f"{res['prefill_ms']:.1f} ms, decode {res['decode_ms_per_step']:.2f} "
-        f"ms/step, {res['tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB")
-    say(f"serve launches (prefill + {steps} decode steps): {launches}")
-    params = res["params"]
-    # where a prefill's and a decode step's time goes (the decode steps go
-    # on from the run's cache; past its end the slot clamps to the last)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=torch.Generator().manual_seed(4)
+        f"ms/step, {res['tok_s']:.1f} tok/s, peak memory "
+        f"{res['peak_gb']:.2f} GB")
+    say(f"serve {arch} launches (prefill + {gen - 1} decode steps): "
+        f"{res['launches']}")
+    params, ec = res["params"], res["ec"]
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, prompt),
+                            generator=torch.Generator().manual_seed(7)
                             ).to(dev)
-    profile_classes("prefill", lambda: T.forward(
-        cfg, res["ec"], params, prompts,
-        collect_cache_len=SERVE_PROMPT + SERVE_GEN))
-    step = make_serve_step(cfg, res["ec"])
+    profile_classes(f"{arch} prefill", lambda: T.forward(
+        cfg, ec, params, prompts, res["memory"],
+        collect_cache_len=prompt + gen))
+    del prompts
+    step = make_serve_step(cfg, ec)
     state = {"cache": res["cache"], "tok": toks[:, -1:]}
 
     def decode(n=4):
         for _ in range(n):
             state["tok"], state["cache"] = step(params, state["cache"],
                                                 state["tok"])
-    profile_classes("decode", decode, steps=4)
-    del res, state, prompts
+    profile_classes(f"{arch} decode", decode, steps=4)
+    return res
+
+
+def _decode_without_sync(res, label: str, ring: bool = False) -> None:
+    """One more decode step with CUDA's sync check turned to errors."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(res["cfg"], res["ec"], ring=ring)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(res["params"], res["cache"], res["tokens"][:, -1:])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say(f"serve {label} decode step under torch.cuda.set_sync_debug_mode("
+        f"'error'): no host synchronisation")
+
+
+def phase_serve(dev):
+    """mistral-nemo-12b at full width, bf16, through the serve launcher's
+    functions: a fused prefill and greedy decode (``_serve_full``), then
+    a ring run and one ring step under the sync check."""
+    from repro_torch.launch import serve
+    res = _serve_full(SERVE_ARCH, dev)
+    launches, params = res["launches"], res["params"]
+    n_sb = res["cfg"].n_superblocks
+    del res
     reset_launches()
     ring = serve.run(_serve_args(
         "--no-reduced", "--batch", str(SERVE_BATCH), "--prompt-len",
         str(RING_PROMPT), "--gen", str(RING_GEN), "--window",
         str(RING_WINDOW)), params=params)
     ring_launches = read_launches()
+    _all_calls_recorded(ring_launches, f"serve {SERVE_ARCH} ring")
     ring_steps = RING_PROMPT + RING_GEN - 1
     want = {"segment_tree": 0, "categorical_projection": 0,
             "rmsnorm": (2 * n_sb + 1) * ring_steps, "flash_attention": 0,
@@ -2405,133 +2656,56 @@ def phase_serve(dev):
     say(f"serve ring (window {RING_WINDOW}, prompt {RING_PROMPT}, "
         f"{RING_GEN} tokens, wraps {ring_steps // RING_WINDOW} times): "
         f"{ring['decode_ms_per_step']:.2f} ms/step, launches {ring_launches}")
-    # one more decode step, with CUDA's sync check turned to errors
-    step = make_serve_step(ring["cfg"], ring["ec"], ring=True)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        nxt, _ = step(params, ring["cache"], ring["tokens"][:, -1:])
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    say("serve decode step under torch.cuda.set_sync_debug_mode('error'): "
-        "no host synchronisation")
+    _decode_without_sync(ring, f"{SERVE_ARCH} ring", ring=True)
     return launches
 
 
-def phase_serve_against_cpu():
-    """Reduced mistral-nemo-12b (float32) served on the card and on the
-    CPU: equal greedy tokens, logits within 1e-3; a fused and a ring
-    run."""
-    from repro_torch.launch import serve
-    worst = 0.0
-    for extra in ((), ("--window", "8")):
-        runs = {d: serve.run(_serve_args("--batch", "4", "--prompt-len", "24",
-                                         "--gen", "12", "--device",
-                                         d.split()[0], *extra))
-                for d in ("cpu", "cuda", "cuda again")}
-        check(torch.equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"].cpu()),
-              f"greedy tokens differ between the card and the CPU {extra}")
-        # two runs on the card are bitwise equal, caches included
-        for path, a in _paths(runs["cuda"]["cache"]):
-            check(torch.equal(a, dict(_paths(runs["cuda again"]["cache"]))[path]),
-                  f"cache{path} differs between two runs on the card {extra}")
-        check(torch.equal(runs["cuda"]["tokens"], runs["cuda again"]["tokens"]),
-              f"tokens differ between two runs on the card {extra}")
-        if not extra:
-            a = runs["cpu"]["prefill_logits"]
-            b = runs["cuda"]["prefill_logits"].cpu()
-            worst = float((a - b).abs().max())
-            check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
-                  f"prefill logits differ between the card and the CPU by "
-                  f"{worst}")
-    say(f"serve agreement with the CPU path (reduced {SERVE_ARCH}, float32, "
-        f"fused and ring): tokens equal, prefill logits within 1e-3 (max "
-        f"{worst:.2e}); two runs on the card bitwise equal, caches included")
+def _gated(params) -> None:
+    """The VLM's cross-attention gates (drawn as zeros, which would hide
+    the cross-attention) set to nonzero values, in place."""
+    for block in params["layers"].values():
+        if "gate_x" in block:
+            n = block["gate_x"].shape[0]
+            block["gate_x"].copy_(torch.linspace(
+                0.5, -1.0, n, device=block["gate_x"].device).reshape(n, 1))
 
 
-
-def phase_recurrent_serve(arch: str, dev):
-    """One recurrent arch at full width and depth, bf16, through the
-    serve launcher's functions (a fused prefill and greedy decode), with
-    each kernel's launches counted, then a profile of one prefill and of
-    4 decode steps."""
-    from repro_torch.config import ATTN, MAMBA2, SLSTM
-    from repro_torch.launch import serve
-    from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import transformer as T
-    torch.cuda.empty_cache()
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    res = serve.run(serve.parse_args(
-        ["--arch", arch, "--no-reduced", "--batch", str(SERVE_BATCH),
-         "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]))
-    launches = read_launches()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg, toks = res["cfg"], res["tokens"]
-    steps = SERVE_GEN - 1
-    per = {k: cfg.superblock.count(k) * cfg.n_superblocks
-           for k in (ATTN, MAMBA2, SLSTM)}
-    # one RMSNorm per recurrent block, two per attention block, the final
-    norms = 1 + cfg.n_layers + per[ATTN]
-    want = {"segment_tree": 0, "categorical_projection": 0,
-            "rmsnorm": norms * (1 + steps), "flash_attention": per[ATTN],
-            "decode_attention": per[ATTN] * steps, "ssm_scan": per[MAMBA2],
-            "slstm_scan": per[SLSTM], "tree_build": 0}
-    check(launches == want, f"{arch} launches {launches}, expected {want}")
-    check(tuple(toks.shape) == (SERVE_BATCH, SERVE_GEN)
-          and toks.dtype == torch.int32 and toks.device.type == "cuda",
-          f"{arch} generated {toks.dtype} {tuple(toks.shape)} on "
-          f"{toks.device}")
-    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          f"{arch}: a generated token lies outside the vocabulary")
-    check(bool(torch.isfinite(res["prefill_logits"]).all()),
-          f"{arch}: non-finite prefill logits")
-    for path, t in _paths(res["cache"]["layers"], "cache"):
-        check(t.device.type == "cuda" and bool(torch.isfinite(t).all()),
-              f"{arch}: {path} is not finite on the card")
-    check(int(res["cache"]["pos"]) == SERVE_PROMPT + steps,
-          f"{arch}: the cache's position is wrong")
-    say(f"serve {arch} full width bf16 ({res['param_count']} parameters), "
-        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: "
-        f"init {res['init_s']:.2f} s, prefill {res['prefill_ms']:.1f} ms, "
-        f"decode {res['decode_ms_per_step']:.2f} ms/step, "
-        f"{res['tok_s']:.1f} tok/s, peak memory {peak_gb:.2f} GB")
-    say(f"serve {arch} launches (prefill + {steps} decode steps): {launches}")
-    params = res["params"]
-    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
-                            generator=torch.Generator().manual_seed(7)
-                            ).to(dev)
-    profile_classes(f"{arch} prefill", lambda: T.forward(
-        cfg, res["ec"], params, prompts,
-        collect_cache_len=SERVE_PROMPT + SERVE_GEN))
-    step = make_serve_step(cfg, res["ec"])
-    state = {"cache": res["cache"], "tok": toks[:, -1:]}
-
-    def decode(n=4):
-        for _ in range(n):
-            state["tok"], state["cache"] = step(params, state["cache"],
-                                                state["tok"])
-    profile_classes(f"{arch} decode", decode, steps=4)
-    return launches
-
-
-def phase_recurrent_against_cpu(arch: str):
-    """The reduced arch (float32) served on the card and on the CPU: equal
-    greedy tokens, prefill logits within 1e-3; two runs on the card
-    bitwise equal, caches included; a fused run (a 128-token prompt:
-    several SSD and mLSTM chunks) and, where the arch has attention, a
-    ring run."""
+def _serve_against_cpu(arch: str, prompt: int = 24) -> None:
+    """The reduced arch (float32) served on the card and on the CPU:
+    equal greedy tokens, prefill logits within 1e-3, two card runs
+    bitwise equal, caches included; a fused run and, where the arch has
+    attention, a ring run. A MoE arch's routes are first asserted a
+    margin of 1e-5 (the k-th router probability over the (k+1)-th, on
+    the CPU), and the VLM's gates are set nonzero."""
+    from repro_torch import rng
+    from repro_torch.config import ExecConfig
     from repro_torch.configs import reduced_config
     from repro_torch.launch import serve
-    rings = ((), ("--window", "8")) if "attn" in reduced_config(
-        arch).superblock else ((),)
-    worst = 0.0
+    from repro_torch.models import transformer as T
+    cfg = reduced_config(arch)
+    rings = ((), ("--window", "8")) if not cfg.attention_free else ((),)
+    worst, margins = 0.0, []
     for extra in rings:
-        runs = {d: serve.run(serve.parse_args(
-            ["--arch", arch, "--batch", "4", "--prompt-len", "128", "--gen",
-             "12", "--device", d.split()[0], *extra]))
-            for d in ("cpu", "cuda", "cuda again")}
+        runs = {}
+        for d in ("cpu", "cuda", "cuda again"):
+            dev = d.split()[0]
+            params = None
+            if cfg.family == "vlm":      # the launcher's init, gates set
+                params = T.init_params(cfg, rng.PRNGKey(0, device=dev),
+                                       ExecConfig(compute_dtype="float32"))
+                _gated(params)
+            with _router_margins() as seen:
+                runs[d] = serve.run(serve.parse_args(
+                    ["--arch", arch, "--batch", "4", "--prompt-len",
+                     str(prompt), "--gen", "12", "--device", dev, *extra]),
+                    params=params)
+            if d == "cpu":
+                margins += seen
+        if cfg.moe is not None:
+            check(len(margins) > 0, f"{arch}: no routing was recorded")
+            margin = min(margins)
+            check(margin > 1e-5, f"{arch}: a router near-tie ({margin:.2e}) "
+                  f"on the CPU {extra}")
         check(torch.equal(runs["cpu"]["tokens"], runs["cuda"]["tokens"].cpu()),
               f"{arch}: greedy tokens differ between the card and the CPU "
               f"{extra}")
@@ -2548,11 +2722,11 @@ def phase_recurrent_against_cpu(arch: str):
             check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
                   f"{arch}: prefill logits differ between the card and the "
                   f"CPU by {worst}")
-    say(f"serve agreement with the CPU path (reduced {arch}, float32, "
-        f"{'fused and ring' if len(rings) > 1 else 'fused'}): tokens equal, "
-        f"prefill logits within 1e-3 (max {worst:.2e}); two runs on the card "
-        f"bitwise equal, caches included")
-
+    say(f"serve agreement with the CPU path (reduced {arch}, float32, prompt "
+        f"{prompt}, {'fused and ring' if len(rings) > 1 else 'fused'}): "
+        f"tokens equal, prefill logits within 1e-3 (max {worst:.2e})"
+        + (f", router margin {margin:.2e}" if margins else "")
+        + "; two runs on the card bitwise equal, caches included")
 
 
 # ---------------------------------------------------------------------------
@@ -2677,18 +2851,41 @@ def phase_kernel_grads(dev) -> None:
         f"plain versions")
 
 
+def _per_kind(cfg) -> dict:
+    from repro_torch.config import BLOCK_KINDS
+    return {k: cfg.superblock.count(k) * cfg.n_superblocks
+            for k in BLOCK_KINDS}
+
+
 def _forward_launches(cfg) -> dict:
     """Each kernel's launches in one full-sequence forward of ``cfg``:
-    one RMSNorm per recurrent block, two per attention block and the
-    final one; one flash attention per attention block, one scan per
-    Mamba2 or sLSTM block."""
-    from repro_torch.config import ATTN, MAMBA2, SLSTM
-    per = {k: cfg.superblock.count(k) * cfg.n_superblocks
-           for k in (ATTN, MAMBA2, SLSTM)}
+    one RMSNorm per recurrent block, two per attention block, three per
+    cross-attention block, two per encoder layer, the encoder's final
+    one and the stack's; one flash attention per (causal) self-attention,
+    one scan per Mamba2 or sLSTM block. The encoder's and the
+    cross-attention's non-causal attention is plain tensor ops."""
+    from repro_torch.config import ATTN, CROSS_ATTN, MAMBA2, SLSTM
+    per = _per_kind(cfg)
+    encoder = 2 * cfg.n_encoder_layers + 1 if cfg.is_encoder_decoder else 0
     out = dict.fromkeys(kernel_table(), 0)
-    out.update(rmsnorm=1 + cfg.n_layers + per[ATTN],
-               flash_attention=per[ATTN], ssm_scan=per[MAMBA2],
-               slstm_scan=per[SLSTM])
+    out.update(rmsnorm=1 + cfg.n_layers + per[ATTN] + 2 * per[CROSS_ATTN]
+               + encoder,
+               flash_attention=per[ATTN] + per[CROSS_ATTN],
+               ssm_scan=per[MAMBA2], slstm_scan=per[SLSTM])
+    return out
+
+
+def _serve_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in a fused prefill of ``cfg`` and ``steps``
+    decode steps: a step's RMSNorms are the forward's but the encoder's,
+    and it runs decode attention once per self-attention and once more
+    per cross-attention (over the memory's K/V)."""
+    from repro_torch.config import ATTN, CROSS_ATTN
+    per = _per_kind(cfg)
+    out = _forward_launches(cfg)
+    step_norms = 1 + cfg.n_layers + per[ATTN] + 2 * per[CROSS_ATTN]
+    out["rmsnorm"] += steps * step_norms
+    out["decode_attention"] = steps * (per[ATTN] + 2 * per[CROSS_ATTN])
     return out
 
 
@@ -2759,11 +2956,14 @@ def _train_rerun_bitwise(res, step: int, dev) -> int:
     from repro_torch.config import TrainConfig
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import step_memory
     cfg, ec = res["cfg"], res["ec"]
     step_fn, _ = make_train_step(cfg, ec, TrainConfig(
         learning_rate=3e-3, warmup_steps=10, remat=False))
     batch = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH).batch(step,
                                                                  device=dev)
+    if cfg.has_cross_attention:
+        batch["memory"] = step_memory(cfg, TRAIN_BATCH, step, dev)
     a = step_fn(res["params"], res["opt_state"], batch)
     b = step_fn(res["params"], res["opt_state"], batch)
     torch.cuda.synchronize()
@@ -2775,7 +2975,6 @@ def phase_train(dev) -> dict:
     per step on the two full-width runs."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
-    from repro_torch.optim.schedule import warmup_cosine
     paths = {}
     # the CLI in a process of its own: xlstm-125m at full width and depth
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -2829,31 +3028,41 @@ def phase_train(dev) -> dict:
             f"({n} tensors)")
         del run
     # the card against the CPU on the reduced archs, float32, 2 steps
-    lr = warmup_cosine(3e-3, 10, 10_000)
-    lr_sum = sum(float(lr(torch.tensor(i + 1))) for i in range(2))
     for arch in (TRAIN_ARCH, AL_ARCH):
-        runs, first = {}, {}
-        for d in ("cpu", "cuda"):
-            def keep(i, params, opt_state, d=d):
-                if i == 0:       # the first step's moments: its gradients
-                    first[d] = opt_state
-            runs[d] = train.run(_train_args(arch, "--steps", "2",
-                                            "--device", d), on_step=keep)
-        a, b = runs["cpu"]["losses"], runs["cuda"]["losses"]
-        check(all(abs(x - y) <= 1e-4 + 1e-4 * abs(x) for x, y in zip(a, b)),
-              f"train {arch} reduced: losses {a} on the CPU, {b} on the card")
-        g_worst = max(_leaves_agree(first["cpu"][k], first["cuda"][k],
-                                    f"train {arch} reduced, step 1's {k}")
-                      for k in ("m", "v"))
-        worst, moved, total = _params_agree(
-            runs["cpu"]["params"], runs["cuda"]["params"], lr_sum,
-            f"train {arch} reduced")
-        say(f"train agreement with the CPU path (reduced {arch}, float32, 2 "
-            f"steps): losses within 1e-4 ({a} / {b}); step 1's AdamW moments "
-            f"within 1e-3 of each leaf's largest (max {g_worst:.2e}); params "
-            f"after 2 steps within 1e-3 of each leaf's largest (max "
-            f"{worst:.2e}) but for {moved} of {total} elements, within 2 lr")
+        _train_against_cpu(arch, 2)
     return paths
+
+
+def _train_against_cpu(arch: str, steps: int) -> None:
+    """The reduced arch (float32) trained for ``steps`` steps through the
+    launcher's function on the CPU and on the card: losses to 1e-4, the
+    first step's AdamW moments (its gradients) to 1e-3 of each leaf's
+    largest, the final parameters by ``_params_agree``."""
+    from repro_torch.launch import train
+    from repro_torch.optim.schedule import warmup_cosine
+    lr = warmup_cosine(3e-3, 10, 10_000)
+    lr_sum = sum(float(lr(torch.tensor(i + 1))) for i in range(steps))
+    runs, first = {}, {}
+    for d in ("cpu", "cuda"):
+        def keep(i, params, opt_state, d=d):
+            if i == 0:       # the first step's moments: its gradients
+                first[d] = opt_state
+        runs[d] = train.run(_train_args(arch, "--steps", str(steps),
+                                        "--device", d), on_step=keep)
+    a, b = runs["cpu"]["losses"], runs["cuda"]["losses"]
+    check(all(abs(x - y) <= 1e-4 + 1e-4 * abs(x) for x, y in zip(a, b)),
+          f"train {arch} reduced: losses {a} on the CPU, {b} on the card")
+    g_worst = max(_leaves_agree(first["cpu"][k], first["cuda"][k],
+                                f"train {arch} reduced, step 1's {k}")
+                  for k in ("m", "v"))
+    worst, moved, total = _params_agree(
+        runs["cpu"]["params"], runs["cuda"]["params"], lr_sum,
+        f"train {arch} reduced")
+    say(f"train agreement with the CPU path (reduced {arch}, float32, "
+        f"{steps} steps): losses within 1e-4 ({a} / {b}); step 1's AdamW "
+        f"moments within 1e-3 of each leaf's largest (max {g_worst:.2e}); "
+        f"params after {steps} steps within 1e-3 of each leaf's largest (max "
+        f"{worst:.2e}) but for {moved} of {total} elements, within 2 lr")
 
 
 def _al_want(cfg, al, learner: bool, per_sample: bool) -> dict:
@@ -3058,6 +3267,131 @@ def phase_actor_learner(dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: mixture-of-experts and cross-attention
+# ---------------------------------------------------------------------------
+
+def _router_margins():
+    """A context that records every routing's margin: the gap between
+    the k-th and (k+1)-th router probability, its smallest over the
+    tokens, in float64 on the routing's device."""
+    from repro_torch.models import moe as M
+    seen = []
+    router = M._router
+
+    def recording(x32, w, m):
+        logits = x32.detach().double() @ w.detach().double()
+        p = torch.sort(torch.softmax(logits, -1), -1, descending=True)[0]
+        seen.append(float((p[:, m.top_k - 1] - p[:, m.top_k]).min()))
+        return router(x32, w, m)
+
+    @contextlib.contextmanager
+    def ctx():
+        M._router = recording
+        try:
+            yield seen
+        finally:
+            M._router = router
+    return ctx()
+
+
+def phase_moe_serve(dev) -> dict:
+    """Phase 22: qwen2-moe-a2.7b at full width and depth, bf16
+    (``_serve_full``), one more decode step under the sync check; reduced
+    granite-moe and qwen2-moe against the CPU."""
+    res = _serve_full(MOE_SERVE_ARCH, dev)
+    _decode_without_sync(res, MOE_SERVE_ARCH)
+    launches = res["launches"]
+    del res
+    for arch in (MOE_TRAIN_ARCH, MOE_SERVE_ARCH):
+        _serve_against_cpu(arch)
+    return {f"serve {MOE_SERVE_ARCH} (full, per run)": launches}
+
+
+def _train_full(arch: str, steps: int, dev) -> dict:
+    """One arch at full width and depth through the train launcher's
+    function (bf16 compute, float32 parameters): finite losses, each
+    kernel's launches per step, peak memory, two runs of a step bitwise
+    equal. Returns the launches per step and the run's losses."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = train.run(_train_args(arch, "--no-reduced", "--steps", str(steps)))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _all_calls_recorded(launches, f"train {arch}")
+    cfg = run["cfg"]
+    want = _forward_launches(cfg)
+    check(launches == _scaled(want, steps), f"train {arch}: launches "
+          f"{launches}, expected {steps} x {want} (the forward's; the "
+          f"backward launches none)")
+    check(all(map(math.isfinite, run["losses"] + run["ces"])),
+          f"train {arch}: losses {run['losses']}, ce {run['ces']}")
+    aux = [a - c for a, c in zip(run["losses"], run["ces"])]
+    if cfg.moe is not None:
+        check(all(a > 0 for a in aux), f"train {arch}: aux {aux} (loss - ce)")
+    n_params = sum(t.numel() for _, t in _paths(run["params"]))
+    say(f"train {arch} full width and depth, bf16 compute, float32 "
+        f"parameters ({n_params} parameters), batch {TRAIN_BATCH}, seq "
+        f"{TRAIN_SEQ}: init {run['init_s']:.2f} s, {run['s_per_step']:.3f} "
+        f"s/step over {steps} steps, peak memory {peak_gb:.2f} GB, losses "
+        + ", ".join(f"{x:.4f}" for x in run["losses"])
+        + (", aux (loss - ce) " + ", ".join(f"{x:.5f}" for x in aux)
+           if cfg.moe is not None else ""))
+    per_step = {k: v // steps for k, v in launches.items()}
+    say(f"train {arch} launches per step: {per_step}")
+    n = _train_rerun_bitwise(run, steps, dev)
+    say(f"train {arch}: two runs of one step from one state bitwise equal "
+        f"({n} tensors)")
+    return per_step
+
+
+def phase_moe_train(dev) -> dict:
+    """Phase 23: granite-moe-1b-a400m at full width and depth through the
+    train launcher's function, then its reduced first step on the card
+    against the CPU."""
+    per_step = _train_full(MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, dev)
+    with _router_margins() as seen:
+        _train_against_cpu(MOE_TRAIN_ARCH, 1)
+    check(min(seen) > 1e-5, f"{MOE_TRAIN_ARCH}: a router near-tie "
+          f"({min(seen):.2e}) in the reduced step")
+    say(f"train {MOE_TRAIN_ARCH} reduced: router margin {min(seen):.2e} "
+        f"over {len(seen)} routings (CPU and card)")
+    return {f"train {MOE_TRAIN_ARCH} (full depth, per step)": per_step}
+
+
+def phase_cross_serve(dev) -> dict:
+    """Phase 24: whisper-tiny at full width and depth (its 1500-frame
+    encoder, the decoder's prompt inside its 448-token context) and
+    llama-3.2-vision-11b at full width with its 1601-token memory, cut to
+    VLM_SUPERBLOCKS of 8 superblocks; reduced whisper and llama against
+    the CPU."""
+    from repro_torch.configs import get_config
+    paths = {}
+    res = _serve_full(WHISPER_ARCH, dev, prompt=WHISPER_PROMPT,
+                      gen=WHISPER_GEN)
+    _decode_without_sync(res, WHISPER_ARCH)
+    paths[f"serve {WHISPER_ARCH} (full, per run)"] = res["launches"]
+    del res
+    cut = dataclasses.replace(get_config(VLM_ARCH),
+                              n_superblocks=VLM_SUPERBLOCKS)
+    res = _serve_full(VLM_ARCH, dev, cfg=cut)
+    paths[f"serve {VLM_ARCH} ({VLM_SUPERBLOCKS} of 8 superblocks, per run)"] \
+        = res["launches"]
+    del res
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        _serve_against_cpu(arch)
+    return paths
+
+
+def phase_cross_train(dev) -> dict:
+    """Phase 25: whisper-tiny at full size through the train launcher's
+    function, each step with its memory."""
+    per_step = _train_full(WHISPER_ARCH, CROSS_TRAIN_STEPS, dev)
+    return {f"train {WHISPER_ARCH} (full, per step)": per_step}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3115,15 +3449,19 @@ def main() -> int:
           type(trainer)(short, device="cuda"), carry,
           f"C={PROFILED_STEPS}: ")
     del trainer, carry
+    # phases 8-25 record each case they give the three LLM kernels;
+    # phase 26 holds those phase 3 did not
+    recording = _recorded_calls()
+    recording.__enter__()
     serve_launches = timed("8 (serve)", phase_serve, dev)
     for name in ("rmsnorm", "flash_attention", "decode_attention"):
         launches[name] = serve_launches[name]
-    timed("9 (serve against the CPU)", phase_serve_against_cpu)
+    timed("9 (serve against the CPU)", _serve_against_cpu, SERVE_ARCH)
     for arch, name in zip(RECURRENT_ARCHS, ("ssm_scan", "slstm_scan")):
-        launches[name] = timed(f"10 ({arch})", phase_recurrent_serve, arch,
-                               dev)[name]
-        timed(f"11 ({arch} against the CPU)", phase_recurrent_against_cpu,
-              arch)
+        launches[name] = timed(f"10 ({arch})", _serve_full, arch,
+                               dev)["launches"][name]
+        # a 128-token prompt: several SSD and mLSTM chunks
+        timed(f"11 ({arch} against the CPU)", _serve_against_cpu, arch, 128)
     # the catch phases come after the serve phases: each stream they use
     # keeps card memory (below), which would count in the serve peaks
     t0 = time.perf_counter()
@@ -3157,6 +3495,16 @@ def main() -> int:
     new_paths.update(timed("21 (actor-learner)", phase_actor_learner, dev))
     say(f"training and actor-learner phases (kernel gradients, train, "
         f"actor-learner): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    new_paths.update(timed("22 (MoE serve)", phase_moe_serve, dev))
+    new_paths.update(timed("23 (MoE train)", phase_moe_train, dev))
+    new_paths.update(timed("24 (cross-attention serve)", phase_cross_serve,
+                           dev))
+    new_paths.update(timed("25 (whisper train)", phase_cross_train, dev))
+    say(f"MoE and cross-attention phases (serve and train): "
+        f"{time.perf_counter() - t0:.1f} s")
+    recording.__exit__(None, None, None)
+    timed("26 (parity at the paths' cases)", phase_path_parity, dev)
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

@@ -1,11 +1,10 @@
 """Architecture registry: the port's copy of ``repro.configs``.
 
-Every architecture the reference knows has an id in ``ARCH_IDS``. The
-port carries the dense attention-only ones and the recurrent ones
-(zamba2's Mamba2 with shared attention, xlstm's mLSTM and sLSTM):
+Every architecture the reference knows has an id in ``ARCH_IDS``, and
 ``configs/<module>.py`` defines ``CONFIG: ModelConfig`` for each, copied
-from the reference. ``get_config`` of any other known id raises, naming
-the ROADMAP.md item that will port it. The DQN network lives in ``configs/dqn_nature.py``.
+from the reference: dense, mixture-of-experts, hybrid (zamba2's Mamba2
+with shared attention), recurrent (xlstm's mLSTM and sLSTM), the VLM
+and whisper. The DQN network lives in ``configs/dqn_nature.py``.
 """
 
 from __future__ import annotations
@@ -31,15 +30,6 @@ _ARCH_MODULES = {
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
-# the known archs that need a block kind or an MLP the port lacks, and the
-# ROADMAP.md queue 1 item 13 entry that ports it
-NOT_PORTED = {
-    "granite-moe-1b-a400m": "item 13: mixture-of-experts MLPs",
-    "qwen2-moe-a2.7b": "item 13: mixture-of-experts MLPs",
-    "llama-3.2-vision-11b": "item 13: cross-attention (VLM, whisper)",
-    "whisper-tiny": "item 13: cross-attention (VLM, whisper)",
-}
-
 _cache: Dict[str, ModelConfig] = {}
 
 
@@ -48,10 +38,6 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _cache:
         if arch_id not in _ARCH_MODULES:
             raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-        if arch_id in NOT_PORTED:
-            raise NotImplementedError(
-                f"{arch_id} is not ported yet: ROADMAP.md queue 1 "
-                f"{NOT_PORTED[arch_id]}")
         mod = importlib.import_module(
             f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
         cfg: ModelConfig = mod.CONFIG

@@ -44,8 +44,10 @@
 //   state in shared memory: the lanes take the positions for the scores
 //   and the softmax (warp shuffles), then the head-dim columns for
 //   acc = alpha acc + sum p v. Tiles hold 32 nsub positions (nsub = 4,
-//   2 and 1 for G = 1, 2 and more), so any group keeps the warps busy;
-//   each block merges its subtiles' states per head, in order.
+//   2 and 1 for G = 1, 2 and more), so any group keeps the warps busy,
+//   halved where the ring would not fit in a block's shared memory
+//   (float32 at D 128 and G 1 takes nsub = 2); each block merges its
+//   subtiles' states per head, in order.
 //
 // The combine: after a cluster barrier the blocks of the cluster share
 // the G D outputs, each reading every block's (m, l, acc) through
@@ -77,6 +79,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 8;
 constexpr int kScalarStages = 2;  // tiles in the scalar body's ring
 constexpr int kMaxD = 256;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on the card
 constexpr float kMInit = -1e30f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -153,30 +156,40 @@ struct Plan {
   int splits, chunk, nsub;
 };
 
-int subtiles(int G) { return G == 1 ? 4 : (G == 2 ? 2 : 1); }
-
-// Splits double, up to 8, while each keeps at least 64 positions and
-// the grid still fits on the card at once (`resident` blocks: the SMs
-// times the blocks one SM holds), so no block waits for another to end.
-Plan make_plan(int L, int pairs, int G, int resident) {
-  Plan p;
-  int s = 1;
-  while (s < kMaxSplits && L / (2 * s) >= 64 && pairs * 2 * s <= resident)
-    s *= 2;
-  p.splits = s;
-  p.chunk = ((L + s - 1) / s + 7) / 8 * 8;
-  p.nsub = subtiles(G);
-  return p;
-}
-
-size_t smem_bytes(int D, int G, int es) {
-  const size_t nsub = subtiles(G);
+size_t smem_bytes(int D, int G, int es, size_t nsub) {
   const size_t tile = 32 * nsub;
   const size_t row = static_cast<size_t>(D) * es + 16;
   return kScalarStages * 2 * tile * row +
          sizeof(float) * (static_cast<size_t>(G) * D + 2 * nsub * G +
                           nsub * G * D + 2 * G +
                           static_cast<size_t>(G) * D);
+}
+
+// 4 subtiles for G = 1 and 2 for G = 2 keep all four warps busy on a
+// tile; halved while the block would need more shared memory than the
+// card has.
+int subtiles(int D, int G, int es) {
+  int nsub = G == 1 ? 4 : (G == 2 ? 2 : 1);
+  while (nsub > 1 && smem_bytes(D, G, es, nsub) > kMaxSmem) nsub /= 2;
+  return nsub;
+}
+
+// Splits double, up to 8, while each keeps at least 64 positions and
+// the grid still fits on the card at once (`resident` blocks: the SMs
+// times the blocks one SM holds), so no block waits for another to end.
+Plan make_plan(int L, int pairs, int nsub, int resident) {
+  Plan p;
+  int s = 1;
+  while (s < kMaxSplits && L / (2 * s) >= 64 && pairs * 2 * s <= resident)
+    s *= 2;
+  p.splits = s;
+  p.chunk = ((L + s - 1) / s + 7) / 8 * 8;
+  p.nsub = nsub;
+  return p;
+}
+
+size_t smem_bytes(int D, int G, int es) {
+  return smem_bytes(D, G, es, subtiles(D, G, es));
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t d, const void* src,
@@ -750,7 +763,8 @@ int launch(const void* q, const void* k, const void* v, const void* cache_len,
     resident = sms * per_sm;
     resident_smem = static_cast<int>(smem);
   }
-  const Plan plan = make_plan(L, B * Hkv, G, resident);
+  const Plan plan = make_plan(L, B * Hkv, subtiles(D, G, sizeof(T)),
+                              resident);
   if (plan_out != nullptr) {
     plan_out[0] = plan.splits;
     plan_out[1] = plan.chunk;

@@ -6,9 +6,13 @@ the CPU.
       --no-reduced --batch 8 --prompt-len 1024 --gen 64
 
 The weights are random, drawn from key 0 as the reference draws them,
-and so are the prompts. A full cache (``--window 0``) is filled by one
-fused prefill forward; a ring cache (``--window W``) is filled token by
-token through the decode step, as the reference does. Reduced configs
+and so are the prompts and, for an arch with cross-attention, the memory
+(0.02 N(0, 1) of shape (batch, cross_memory_len, d_model): the VLM's
+patch embeddings, whisper's frame embeddings). A full cache
+(``--window 0``) is filled by one fused prefill forward, which also
+writes the memory's K/V; a ring cache (``--window W``) gets the memory's
+K/V from ``prefill_cross_cache`` and is filled token by token through the
+decode step, as the reference does. Reduced configs
 run in float32, full-size ones in bfloat16 (the reference's rule).
 ``--device cuda`` (the default) raises when no card is visible.
 """
@@ -22,7 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import rng
-from repro_torch.config import ExecConfig
+from repro_torch.config import ExecConfig, ModelConfig
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import params as P
@@ -49,14 +53,18 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args, params: Optional[Any] = None) -> Dict[str, Any]:
+def run(args, params: Optional[Any] = None,
+        cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
     """Serve one batch as the CLI does and return what it measured:
     ``tokens`` (B, gen) int32, ``prefill_logits`` (the last prompt
     position's logits over the vocabulary, fused prefill only), the
-    timings, and ``params`` (pass them back in to serve again without a
-    new init)."""
+    timings, ``memory`` (None without cross-attention) and ``params``
+    (pass them back in to serve again without a new init). ``cfg``
+    replaces the arch's config (a depth cut)."""
     dev = configure(args.device)
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = reduced_config(args.arch) if args.reduced \
+            else get_config(args.arch)
     ec = ExecConfig(compute_dtype="float32" if args.reduced else "bfloat16")
     ring = args.window > 0
     cache_len = args.window if ring else args.prompt_len + args.gen
@@ -70,6 +78,10 @@ def run(args, params: Optional[Any] = None) -> Dict[str, Any]:
         _sync(dev)
     init_s = time.perf_counter() - t0
     prompts = rng.randint(key, (args.batch, args.prompt_len), 0, cfg.vocab)
+    memory = None
+    if cfg.has_cross_attention:
+        memory = rng.normal(key, (args.batch, cfg.cross_memory_len,
+                                  cfg.d_model)) * 0.02
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -77,11 +89,13 @@ def run(args, params: Optional[Any] = None) -> Dict[str, Any]:
     if ring:
         # ring caches prefill token by token (window semantics)
         cache = T.init_cache(cfg, ec, args.batch, cache_len, ring, device=dev)
+        if memory is not None:
+            cache = T.prefill_cross_cache(cfg, ec, params, cache, memory)
         for i in range(args.prompt_len):
             nxt, cache = serve(params, cache, prompts[:, i:i + 1])
     else:
         # fused prefill: one forward pass builds the decode cache
-        logits, _, cache = T.forward(cfg, ec, params, prompts,
+        logits, _, cache = T.forward(cfg, ec, params, prompts, memory,
                                      collect_cache_len=cache_len)
         prefill_logits = logits[:, -1, : cfg.vocab]
         nxt = torch.argmax(logits[:, -1:, : cfg.vocab], dim=-1)
@@ -100,6 +114,7 @@ def run(args, params: Optional[Any] = None) -> Dict[str, Any]:
     steps = max(args.gen - 1, 1)
     toks = torch.cat(out, dim=1)
     res = {"cfg": cfg, "ec": ec, "params": params, "tokens": toks,
+           "memory": memory,
            "prefill_logits": prefill_logits, "cache": cache,
            "init_s": init_s, "prefill_ms": prefill_s * 1e3,
            "decode_ms_per_step": dt / steps * 1e3,

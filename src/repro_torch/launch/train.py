@@ -6,14 +6,16 @@ on the card unless asked for the CPU.
 
 The weights are random, drawn from key 0 as the reference draws them,
 and kept in float32; the batches are ``data.SyntheticLM``'s, equal to
-the reference's. Reduced configs compute in float32, full-size ones in
-bfloat16. The reference's ``--use-pallas`` and ``--kernel-backend`` are
-not taken: the port has no backend switch (a CUDA tensor runs the
-kernels, with their plain-recompute backward, a CPU tensor the plain
-versions). Nor is its mesh: one process trains on one device
-(ROADMAP.md queue 1 item 15). ``--device cuda`` (the default) raises when
-no card is visible. ``--ckpt-dir`` writes ``{"params": ...}`` in the
-npz layout both packages read.
+the reference's, with, for an arch with cross-attention, step i's memory
+drawn from key i (0.02 N(0, 1) of shape (batch, cross_memory_len,
+d_model)), as the reference draws it. Reduced configs compute in
+float32, full-size ones in bfloat16. The reference's ``--use-pallas``
+and ``--kernel-backend`` are not taken: the port has no backend switch
+(a CUDA tensor runs the kernels, with their plain-recompute backward, a
+CPU tensor the plain versions). Nor is its mesh: one process trains on
+one device (ROADMAP.md queue 1 item 15). ``--device cuda`` (the
+default) raises when no card is visible. ``--ckpt-dir`` writes
+``{"params": ...}`` in the npz layout both packages read.
 """
 
 from __future__ import annotations
@@ -55,6 +57,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def step_memory(cfg: ModelConfig, batch: int, i: int,
+                device) -> torch.Tensor:
+    """Train step i's cross-attention memory, as the reference draws it:
+    0.02 N(0, 1) of shape (batch, cross_memory_len, d_model) from key
+    i."""
+    return rng.normal(rng.PRNGKey(i, device=device),
+                      (batch, cfg.cross_memory_len, cfg.d_model)) * 0.02
+
+
 def run(args, cfg: Optional[ModelConfig] = None,
         on_step=None) -> Dict[str, Any]:
     """Train as the CLI does, printing its lines, and return ``losses``
@@ -83,6 +94,8 @@ def run(args, cfg: Optional[ModelConfig] = None,
     t0 = time.time()
     for i in range(args.steps):
         batch = data.batch(i, device=dev)
+        if cfg.has_cross_attention:
+            batch["memory"] = step_memory(cfg, args.batch, i, dev)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if on_step is not None:
             on_step(i, params, opt_state)

@@ -6,9 +6,11 @@ Layouts: q (B, S, H, D); k/v (B, S, Hkv, D); caches (B, Hkv, L, D).
 ``causal_attention`` and ``decode_attention`` call the kernel ops
 (flash attention and decode attention): on the card their kernels, on
 the CPU their plain versions, which take the place of the reference's
-dense and blocked XLA variants. ``cache_update`` writes one step's K/V
-in place, at a slot computed on the device, so the decode loop never
-waits for the card.
+dense and blocked XLA variants. ``bidirectional_attention`` (whisper's
+encoder, cross-attention) is plain tensor ops on every device, as the
+reference computes it outside any Pallas kernel. ``cache_update``
+writes one step's K/V in place, at a slot computed on the device, so
+the decode loop never waits for the card.
 """
 
 from __future__ import annotations
@@ -33,6 +35,20 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal self-attention with GQA (kernel 3): q (B, S, H, D), k/v
     (B, S, Hkv, D) -> (B, S, H, D)."""
     return ops.flash_attention(q, k, v, causal=True, window=window)
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention with GQA: q (B, Sq, H, D), k/v (B, Sk, Hkv,
+    D) -> (B, Sq, H, D). The scores are taken in the inputs' type, then
+    scaled and normalized in float32, and the probabilities cast back
+    before the product with v, as the reference does."""
+    H, D = q.shape[2], q.shape[3]
+    k = repeat_kv(k, H, 2).transpose(1, 2)              # (B, H, Sk, D)
+    v = repeat_kv(v, H, 2).transpose(1, 2)
+    scores = torch.matmul(q.transpose(1, 2), k.transpose(2, 3))
+    probs = torch.softmax(scores.to(torch.float32) * D ** -0.5, dim=-1)
+    return torch.matmul(probs.to(q.dtype), v).transpose(1, 2)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,0 +1,196 @@
+"""Mixture-of-experts MLP with top-k routing: the port of
+``repro.models.moe``.
+
+Dispatch (``ExecConfig.moe_impl``):
+
+* ``scatter``: each batch row's tokens go into per-expert capacity
+  buffers of ``cap`` slots, the experts run as one batched SwiGLU product
+  over the expert axis, and the results come back weighted by the router.
+  An assignment's slot is the exclusive count of earlier assignments to
+  its expert in the row (its S·k assignments in token-major order);
+  assignments at or past ``cap`` are dropped and add nothing (Switch /
+  GShard semantics). ``cap`` counts the logical experts, the buffers the
+  padded ones (qwen's 60 -> 64: the 4 pad experts get buffers and never a
+  token).
+* ``expert_parallel``: the reference's ``shard_map`` over a mesh's
+  ``model`` axis. The port has no mesh, so on one card it runs the
+  scatter path, as the reference does without a ``model`` axis.
+* ``dense`` (the oracle): every expert computes every token; no drops.
+
+The router reads its weight in float32 (``init_params`` keeps the leaf
+in float32: a bfloat16 router would route on rounded logits). The
+auxiliary loss is float32: Switch load balance plus the ST-MoE z-loss,
+with exact expert counts.
+
+Moving tokens into and out of the buffers is a gather (an index select)
+where no gradient flows, and a one-hot product where one does: a
+gather's backward is a scatter-add, which is not deterministic on the
+card. Both give the same values: each product has one term that is not
+zero. The slot of every buffer entry is found on the device, so serving
+never waits for the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ExecConfig, ModelConfig, MoEConfig
+from repro_torch.models import params as P
+
+
+def padded_experts(m: MoEConfig) -> int:
+    return max(m.pad_to, m.n_experts)
+
+
+def moe_param_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
+    m = cfg.moe
+    d, f = cfg.d_model, cfg.d_ff
+    E = padded_experts(m)
+    spec = {
+        "router": P.Leaf((d, m.n_experts), ("embed", "experts_logits"),
+                         fan_in=d),
+        "w_gate": P.Leaf((E, d, f), ("experts", "embed", "expert_mlp"),
+                         fan_in=d),
+        "w_up": P.Leaf((E, d, f), ("experts", "embed", "expert_mlp"),
+                       fan_in=d),
+        "w_down": P.Leaf((E, f, d), ("experts", "expert_mlp", "embed"),
+                         fan_in=f),
+    }
+    if m.n_shared_experts:
+        fs = f * m.n_shared_experts
+        spec["shared_gate"] = P.Leaf((d, fs), ("embed", "mlp"), fan_in=d)
+        spec["shared_up"] = P.Leaf((d, fs), ("embed", "mlp"), fan_in=d)
+        spec["shared_down"] = P.Leaf((fs, d), ("mlp", "embed"), fan_in=fs)
+    return spec
+
+
+def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig):
+    """x32: (T, d) float32 -> top-k weights (T, k) float32, expert ids
+    (T, k) int64 and the auxiliary loss."""
+    logits = x32 @ w.to(torch.float32)                       # (T, E_logical)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    T = x32.shape[0]
+    ids = torch.arange(m.n_experts, device=x32.device)
+    counts = (top_e.reshape(-1, 1) == ids).sum(0).to(torch.float32)
+    f_e = counts / (T * m.top_k)
+    p_e = torch.mean(probs, dim=0)
+    lb_loss = m.n_experts * torch.sum(f_e * p_e)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux = m.load_balance_loss * lb_loss + m.router_z_loss * z_loss
+    return top_w, top_e, aux
+
+
+def capacity(m: MoEConfig, S: int) -> int:
+    """Slots per expert and batch row: the reference's formula, over the
+    logical expert count, rounded up to a multiple of 8 (at least 8)."""
+    cap = int(m.capacity_factor * S * m.top_k / m.n_experts)
+    return max(8, (cap + 7) // 8 * 8)
+
+
+def _routes(te: torch.Tensor, E: int, cap: int):
+    """te: (B, S, k) expert ids -> (src, dst). ``src`` (B, E cap): the
+    token (0..S-1) that fills each buffer slot (expert-major), S where
+    the slot stays empty; ``dst`` (B, S k): the slot e cap + c each
+    assignment reads its result from, E cap where it was dropped."""
+    B, S, k = te.shape
+    N = S * k
+    e = te.reshape(B, N)
+    hot = (e[..., None] == torch.arange(E, device=te.device)).to(torch.int32)
+    pos = torch.cumsum(hot, dim=1) - hot                    # exclusive
+    p = torch.gather(pos, 2, e[..., None])[..., 0]          # (B, N)
+    keep = p < cap
+    dst = torch.where(keep, e * cap + p, E * cap)
+    # dropped assignments write past the slots, each to a column of its
+    # own, so that no two writes meet
+    col = torch.where(keep, dst, E * cap + torch.arange(N, device=te.device))
+    tok = torch.arange(N, device=te.device) // k
+    src = torch.full((B, E * cap + N), S, dtype=torch.int64, device=te.device)
+    src.scatter_(1, col, tok.expand(B, N))
+    return src[:, : E * cap], dst
+
+
+def _pick(src: torch.Tensor, idx: torch.Tensor, grad: bool) -> torch.Tensor:
+    """Rows ``idx`` (B, m) of ``src`` (B, n, d), a zero row where idx is
+    n: a gather, or, where a gradient flows, a one-hot product (the
+    module docstring)."""
+    B, n, d = src.shape
+    if grad:
+        ids = torch.arange(n, device=src.device)
+        return torch.matmul((idx[..., None] == ids).to(src.dtype), src)
+    rows = torch.cat([src.reshape(B * n, d), src.new_zeros(1, d)])
+    base = torch.arange(B, device=src.device)[:, None] * n
+    return rows[torch.where(idx < n, idx + base, B * n)]
+
+
+def _experts_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
+    """buf: (E, rows, d) -> (E, rows, d); one batched SwiGLU product per
+    expert over all its rows."""
+    dt = buf.dtype
+    g = torch.bmm(buf, p["w_gate"].to(dt))
+    u = torch.bmm(buf, p["w_up"].to(dt))
+    return torch.bmm(F.silu(g) * u, p["w_down"].to(dt))
+
+
+def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
+                 top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B S, d): dispatch into the capacity buffers, the
+    experts, and the weighted combine."""
+    B, S, d = x.shape
+    k = m.top_k
+    E = padded_experts(m)
+    cap = capacity(m, S)
+    src, dst = _routes(top_e.reshape(B, S, k), E, cap)
+    grad = torch.is_grad_enabled() and (x.requires_grad or any(
+        p[n].requires_grad for n in ("w_gate", "w_up", "w_down")))
+    buf = _pick(x, src, grad)                               # (B, E cap, d)
+    # (B, E, cap, d) -> (E, B cap, d): each expert's rows of every batch row
+    buf = buf.reshape(B, E, cap, d).transpose(0, 1).reshape(E, B * cap, d)
+    out = _experts_swiglu(p, buf)
+    out = out.reshape(E, B, cap, d).transpose(0, 1).reshape(B, E * cap, d)
+    y = _pick(out, dst, grad)                               # (B, S k, d)
+    # each token's k contributions, each product rounded to the compute
+    # dtype, summed in k order
+    y = y.reshape(B * S, k, d) * top_w.reshape(B * S, k, 1).to(out.dtype)
+    acc = y[:, 0]
+    for j in range(1, k):
+        acc = acc + y[:, j]
+    return acc
+
+
+def _dense_moe(p, xt: torch.Tensor, top_w: torch.Tensor,
+               top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
+    """The oracle: every expert on every token, weighted by the router."""
+    dt = xt.dtype
+    E = padded_experts(m)
+    g = torch.matmul(xt, p["w_gate"].to(dt))                # (E, T, f)
+    u = torch.matmul(xt, p["w_up"].to(dt))
+    y_all = torch.matmul(F.silu(g) * u, p["w_down"].to(dt))  # (E, T, d)
+    onehot = F.one_hot(top_e, E).to(dt)                     # (T, k, E)
+    w_e = torch.einsum("tk,tke->te", top_w.to(dt), onehot)
+    return torch.einsum("te,etd->td", w_e, y_all)
+
+
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
+            ec: ExecConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar). The
+    ``scatter`` path unless ``ec.moe_impl`` is ``dense``;
+    ``expert_parallel`` runs the scatter path (the module docstring)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
+    if ec.moe_impl == "dense":
+        y = _dense_moe(p, xt, top_w, top_e, m)
+    else:
+        y = _scatter_moe(p, x, top_w, top_e, m)
+    if m.n_shared_experts:
+        dt = xt.dtype
+        g = torch.matmul(xt, p["shared_gate"].to(dt))
+        u = torch.matmul(xt, p["shared_up"].to(dt))
+        y = y + torch.matmul(F.silu(g) * u, p["shared_down"].to(dt))
+    return y.reshape(B, S, d), aux

@@ -1,49 +1,53 @@
 """The composed model: the port of ``repro.models.transformer`` for
-stacks of ATTN (GQA self-attention + MLP), MAMBA2, MLSTM and SLSTM
-blocks, with zamba2's shared attention block: every dense, hybrid and
-recurrent architecture the reference supports.
+every architecture the reference supports: stacks of ATTN (GQA
+self-attention + MLP), CROSS_ATTN (self-attention + cross-attention to a
+memory + MLP), MAMBA2, MLSTM and SLSTM blocks, zamba2's shared attention
+block, mixture-of-experts MLPs, learned positions and whisper's encoder.
 
 A model is ``cfg.superblock`` repeated ``cfg.n_superblocks`` times. The
 reference scans over stacked parameters; here a Python loop walks the
 same stacked layout, so parameters and caches keep the reference's
 paths and shapes and ``convert`` carries them across as they are:
 ``layers/b0_attn/*`` with a leading ``n_superblocks`` axis, linears as
-(d_in, d_out), KV caches (n_sb, B, Hkv, L, hd), recurrent states (a
-tensor or a tuple of tensors) and conv windows (n_sb, B, W - 1, C). A
-shared attention block has one set of weights (``shared_attn``) and a
-KV cache per superblock.
+(d_in, d_out), KV caches (n_sb, B, Hkv, L, hd), cross-attention caches
+(n_sb, B, Hkv, M, hd), recurrent states (a tensor or a tuple of tensors)
+and conv windows (n_sb, B, W - 1, C). A shared attention block has one
+set of weights (``shared_attn``) and a KV cache per superblock.
 
 Public API (as the reference's):
   model_param_spec(cfg, ec)                        -> param spec tree
   init_params(cfg, key, ec)                        -> params on key's device
-  forward(cfg, ec, params, tokens, collect_cache_len=None)
+  forward(cfg, ec, params, tokens, memory=None, collect_cache_len=None)
                                                    -> logits, aux[, cache]
   init_cache(cfg, ec, batch, cache_len, ring, device=...) -> decode cache
   decode_step(cfg, ec, params, cache, tokens, ring) -> logits, cache
+  encode(cfg, ec, params, frames)                  -> memory (whisper)
+  prefill_cross_cache(cfg, ec, params, cache, memory) -> cache
 
 Drawn parameters (projections, MLP, embed, unembed) are stored in the
 compute dtype: the reference stores them in float32 but reads them only
 through ``.astype(cdtype)``, so the numbers are the same and a bfloat16
 model takes half the memory. Constant leaves (norm gains, the SSM's
-A_log, dt_bias and D, biases) and the sLSTM's recurrent R, which the
-reference reads in float32, stay float32. Training keeps every leaf in
-float32 (``init_params(..., param_dtype=torch.float32)``, the
-reference's ``TrainConfig.param_dtype``): the forward casts them on
-read, and AdamW's small updates are not lost to bfloat16 rounding. A
-float32 draw cast to bfloat16 is the bfloat16 leaf bit for bit.
+A_log, dt_bias and D, biases, the VLM's cross-attention gate), the
+sLSTM's recurrent R and the MoE router, which the reference reads in
+float32, stay float32. Training keeps every leaf in float32
+(``init_params(..., param_dtype=torch.float32)``, the reference's
+``TrainConfig.param_dtype``): the forward casts them on read, and
+AdamW's small updates are not lost to bfloat16 rounding. A float32 draw
+cast to bfloat16 is the bfloat16 leaf bit for bit.
 
-A forward that records a gradient looks tokens up in the embedding by a
-one-hot product (the same values: one term of each sum is not zero), so
-that its backward is a product too and deterministic on the card, not a
-scatter-add; without a gradient it gathers rows. ``ExecConfig.remat``
-checkpoints each superblock (``torch.utils.checkpoint``), as the
-reference checkpoints its scanned body. CROSS_ATTN blocks, MoE MLPs,
-learned positions and the encoder raise NotImplementedError naming
-their ROADMAP.md item; decode caches are updated in place.
+A forward that records a gradient looks tokens (and learned positions)
+up in their table by a one-hot product (the same values: one term of
+each sum is not zero), so that its backward is a product too and
+deterministic on the card, not a scatter-add; without a gradient it
+gathers rows. ``ExecConfig.remat`` checkpoints each superblock
+(``torch.utils.checkpoint``), as the reference checkpoints its scanned
+body. Decode caches are updated in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -52,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
                                 ExecConfig, ModelConfig)
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
@@ -60,30 +65,9 @@ from repro_torch.models.layers import (gelu_mlp, rms_norm, rope_tables,
 
 Tree = Any
 DEFAULT_EXEC = ExecConfig()
-
-# what the port does not run yet -> its ROADMAP.md queue 1 item
-NOT_PORTED = {
-    CROSS_ATTN: "item 13: cross-attention (VLM, whisper)",
-    "moe": "item 13: mixture-of-experts MLPs",
-    "learned": "item 13: cross-attention (VLM, whisper), with learned "
-               "positions",
-    "encoder": "item 13: cross-attention (VLM, whisper), with the encoder",
-}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    missing = [k for k in cfg.superblock if k in NOT_PORTED]
-    if cfg.moe is not None:
-        missing.append("moe")
-    if cfg.pos_kind == "learned":
-        missing.append("learned")
-    if cfg.is_encoder_decoder:
-        missing.append("encoder")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: not ported yet: " + "; ".join(
-                f"{m} (ROADMAP.md queue 1 {NOT_PORTED[m]})"
-                for m in dict.fromkeys(missing)))
+ATTN_KINDS = (ATTN, CROSS_ATTN)
+# drawn leaves that stay float32 (see the module docstring)
+F32_LEAVES = XL.F32_LEAVES + ("router",)
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +76,8 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def _mlp_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.moe is not None:
+        return M.moe_param_spec(cfg)
     if cfg.mlp_kind == "gelu":
         return {
             "w_up": P.Leaf((d, f), ("embed", "mlp"), fan_in=d),
@@ -106,10 +92,10 @@ def _mlp_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     }
 
 
-def _attn_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
+def _attn_spec(cfg: ModelConfig, cross: bool = False) -> Dict[str, P.Leaf]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    spec = {
         "norm1": P.Leaf((d,), ("embed",), init="ones"),
         "wq": P.Leaf((d, H * hd), ("embed", "heads_flat"), fan_in=d),
         "wk": P.Leaf((d, Hkv * hd), ("embed", "kv_flat"), fan_in=d),
@@ -118,11 +104,24 @@ def _attn_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
         "norm2": P.Leaf((d,), ("embed",), init="ones"),
         "mlp": _mlp_spec(cfg),
     }
+    if cross:
+        spec.update({
+            "norm_x": P.Leaf((d,), ("embed",), init="ones"),
+            "wq_x": P.Leaf((d, H * hd), ("embed", "heads_flat"), fan_in=d),
+            "wk_x": P.Leaf((d, Hkv * hd), ("embed", "kv_flat"), fan_in=d),
+            "wv_x": P.Leaf((d, Hkv * hd), ("embed", "kv_flat"), fan_in=d),
+            "wo_x": P.Leaf((H * hd, d), ("heads_flat", "embed"),
+                           fan_in=H * hd),
+        })
+        if cfg.family == "vlm":
+            # llama-3.2-vision's tanh-gated cross-attention
+            spec["gate_x"] = P.Leaf((1,), (None,), init="zeros")
+    return spec
 
 
 def _block_spec(cfg: ModelConfig, kind: str) -> Dict[str, P.Leaf]:
-    if kind == ATTN:
-        return _attn_spec(cfg)
+    if kind in ATTN_KINDS:
+        return _attn_spec(cfg, cross=kind == CROSS_ATTN)
     if kind == MAMBA2:
         return SSM.mamba2_param_spec(cfg)
     if kind == MLSTM:
@@ -144,6 +143,21 @@ def _scanned_superblock_spec(cfg: ModelConfig) -> Dict[str, Tree]:
             if not _shared(cfg, kind)}
 
 
+def _encoder_spec(cfg: ModelConfig) -> Dict[str, Tree]:
+    """Whisper's encoder: attention layers as a self-attention block's
+    but for ``wo``'s fan-in, which the reference declares as d_model,
+    learned positions over the memory and a final norm."""
+    d = cfg.d_model
+    layer = _attn_spec(cfg)
+    layer["wo"] = dataclasses.replace(layer["wo"], fan_in=d)
+    return {
+        "layers": P.stacked(layer, cfg.n_encoder_layers),
+        "pos": P.Leaf((cfg.cross_memory_len, d), ("pos", "embed"),
+                      init="embed"),
+        "final_norm": P.Leaf((d,), ("embed",), init="ones"),
+    }
+
+
 def padded_vocab(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> int:
     return round_up(cfg.vocab, ec.vocab_pad)
 
@@ -151,7 +165,6 @@ def padded_vocab(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> int:
 def model_param_spec(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
     """The reference's spec: the same paths, shapes, axes, initializers,
     fan-ins and (float32) dtypes."""
-    _check_ported(cfg)
     d = cfg.d_model
     vpad = padded_vocab(cfg, ec)
     spec: Dict[str, Tree] = {
@@ -163,6 +176,11 @@ def model_param_spec(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
         spec["unembed"] = P.Leaf((d, vpad), ("embed", "vocab"), fan_in=d)
     if cfg.shared_attention:
         spec["shared_attn"] = _attn_spec(cfg)
+    if cfg.pos_kind == "learned":
+        spec["pos_embed"] = P.Leaf((cfg.learned_pos_len, d), ("pos", "embed"),
+                                   init="embed")
+    if cfg.is_encoder_decoder:
+        spec["encoder"] = _encoder_spec(cfg)
     return spec
 
 
@@ -173,7 +191,7 @@ def init_params(cfg: ModelConfig, key: torch.Tensor,
     stored in ``param_dtype`` (float32 for training), by default in the
     compute dtype (see the module docstring)."""
     spec = P.drawn_in(model_param_spec(cfg, ec), param_dtype or ec.cdtype,
-                      keep=XL.F32_LEAVES)
+                      keep=F32_LEAVES)
     return P.init_tree(spec, key)
 
 
@@ -207,10 +225,14 @@ def _write(dst: Tree, src: Tree) -> None:
             _write(dst[k], src[k])
 
 
-def _mlp(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(bp, x: torch.Tensor, cfg: ModelConfig, ec: ExecConfig):
+    """(y, aux): a MoE MLP's auxiliary loss, 0.0 for the others."""
+    if cfg.moe is not None:
+        return M.moe_ffn(bp, x, cfg, ec)
     if cfg.mlp_kind == "gelu":
-        return gelu_mlp(x, bp["w_up"], bp["b_up"], bp["w_down"], bp["b_down"])
-    return swiglu(x, bp["w_gate"], bp["w_up"], bp["w_down"])
+        return gelu_mlp(x, bp["w_up"], bp["b_up"], bp["w_down"],
+                        bp["b_down"]), 0.0
+    return swiglu(x, bp["w_gate"], bp["w_up"], bp["w_down"]), 0.0
 
 
 def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
@@ -223,12 +245,18 @@ def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
-                    window: Optional[int] = None, return_kv: bool = False):
-    """``rope``: the stack's ``rope_tables`` for x's positions."""
+                    causal: bool = True, window: Optional[int] = None,
+                    return_kv: bool = False):
+    """``rope``: the stack's ``rope_tables`` for x's positions, None where
+    q and k are not rotated (learned positions, the encoder)."""
     q, k, v = _qkv(bp, x, cfg)
-    q = rotate(q, rope)
-    k = rotate(k, rope)
-    o = A.causal_attention(q, k, v, window=window)
+    if rope is not None:
+        q = rotate(q, rope)
+        k = rotate(k, rope)
+    if causal:
+        o = A.causal_attention(q, k, v, window=window)
+    else:
+        o = A.bidirectional_attention(q, k, v)
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
     out = torch.matmul(o, bp["wo"].to(o.dtype))
     if return_kv:
@@ -236,16 +264,49 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
     return out
 
 
-def _apply_block(kind: str, bp, x: torch.Tensor, rope, cfg: ModelConfig,
-                 ec: ExecConfig, collect: bool = False):
-    """Full-sequence block application. Returns (x, entry); with
+def _cross_query(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
+    return _heads(torch.matmul(h, bp["wq_x"].to(h.dtype)), cfg.n_heads,
+                  cfg.resolved_head_dim)
+
+
+def _memory_kv(bp, memory: torch.Tensor, cfg: ModelConfig):
+    """A CROSS_ATTN block's K and V of the memory, (B, M, Hkv, hd) each."""
+    hd = cfg.resolved_head_dim
+    k = torch.matmul(memory, bp["wk_x"].to(memory.dtype))
+    v = torch.matmul(memory, bp["wv_x"].to(memory.dtype))
+    return _heads(k, cfg.n_kv_heads, hd), _heads(v, cfg.n_kv_heads, hd)
+
+
+def _cross_out(bp, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The cross-attention's output projection, tanh-gated for the VLM."""
+    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+    o = torch.matmul(o, bp["wo_x"].to(o.dtype))
+    if "gate_x" in bp:
+        o = o * torch.tanh(bp["gate_x"].to(o.dtype))
+    return o
+
+
+def _cross_attention(bp, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig):
+    """(out, k, v): the block's cross-attention to ``memory`` and the
+    memory's K/V, which the fused prefill keeps for the decode cache."""
+    k, v = _memory_kv(bp, memory, cfg)
+    o = A.bidirectional_attention(_cross_query(bp, x, cfg), k, v)
+    return _cross_out(bp, o, cfg), k, v
+
+
+def _apply_block(kind: str, bp, x: torch.Tensor, rope, memory,
+                 cfg: ModelConfig, ec: ExecConfig, collect: bool = False):
+    """Full-sequence block application. Returns (x, aux, entry): ``aux``
+    the block's auxiliary (MoE) loss, 0.0 where it has none; with
     ``collect``, ``entry`` holds what this block's decode cache needs:
-    an ATTN block's K/V in the cache layout (B, Hkv, S, hd), unpadded; a
+    an attention block's K/V in the cache layout (B, Hkv, S, hd),
+    unpadded, and a CROSS_ATTN block's memory K/V (B, Hkv, M, hd); a
     recurrent block's final state and the last min(S, W - 1) inputs of
-    its conv (``_store`` writes it into the cache). No block here adds
-    an auxiliary loss."""
+    its conv (``_store`` writes it into the cache)."""
     entry = None
-    if kind == ATTN:
+    if kind in ATTN_KINDS:
         if collect:
             h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
             entry = {"k": k.transpose(1, 2).to(ec.cdtype),
@@ -253,8 +314,15 @@ def _apply_block(kind: str, bp, x: torch.Tensor, rope, cfg: ModelConfig,
             x = x + h
         else:
             x = x + _self_attention(bp, x, rope, cfg)
-        return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
-                        cfg), entry
+        if kind == CROSS_ATTN:
+            h, mk, mv = _cross_attention(bp, x, memory, cfg)
+            x = x + h
+            if collect:
+                entry["ck"] = mk.transpose(1, 2).to(ec.cdtype)
+                entry["cv"] = mv.transpose(1, 2).to(ec.cdtype)
+        h, aux = _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
+                      cfg, ec)
+        return x + h, aux, entry
     if kind == MAMBA2:
         h, state, conv_in = SSM._forward(bp, x, cfg)
         w = cfg.ssm.conv_width
@@ -271,14 +339,14 @@ def _apply_block(kind: str, bp, x: torch.Tensor, rope, cfg: ModelConfig,
         entry = {"state": state}
         if conv_in is not None:
             entry["conv"] = conv_in[:, -(w - 1):]
-    return x + h, entry
+    return x + h, 0.0, entry
 
 
 def _store(slot: Dict[str, Tree], entry: Dict[str, Tree]) -> None:
     """Write a block's prefill ``entry`` into its (zeroed) cache slot in
     place: K/V at the first S positions, a conv window's inputs at its
     end (zeros before them stand for the causal padding, where S <
-    W - 1), the recurrent state whole."""
+    W - 1), the recurrent state and the memory's K/V whole."""
     for key, val in entry.items():
         dst = slot[key]
         if key in ("k", "v"):
@@ -307,21 +375,46 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
     return torch.matmul((tokens.long()[..., None] == ids).to(dtype), rows)
 
 
-def _superblock(x: torch.Tensor, lp: Tree, shared: Optional[Tree], rope,
-                cfg: ModelConfig, ec: ExecConfig,
-                cache_layers: Optional[Tree] = None, i: int = 0
-                ) -> torch.Tensor:
-    """One superblock of the full-sequence path; with ``cache_layers``,
-    each block's decode-cache entry is written into superblock ``i``'s
+def _superblock(x: torch.Tensor, aux, lp: Tree, shared: Optional[Tree], rope,
+                memory, cfg: ModelConfig, ec: ExecConfig,
+                cache_layers: Optional[Tree] = None, i: int = 0):
+    """One superblock of the full-sequence path: (x, aux with each
+    block's auxiliary loss added in order); with ``cache_layers``, each
+    block's decode-cache entry is written into superblock ``i``'s
     slot."""
     for j, kind in enumerate(cfg.superblock):
         name = f"b{j}_{kind}"
         bp = shared if _shared(cfg, kind) else lp[name]
-        x, e = _apply_block(kind, bp, x, rope, cfg, ec,
-                            collect=cache_layers is not None)
+        x, a, e = _apply_block(kind, bp, x, rope, memory, cfg, ec,
+                               collect=cache_layers is not None)
+        aux = aux + a
         if cache_layers is not None:
             _store(_layer(cache_layers[name], i), e)
-    return x
+    return x, aux
+
+
+def _rotary(cfg: ModelConfig) -> bool:
+    """Whether attention rotates q and k (the reference: only under
+    ``pos_kind == "rope"``)."""
+    return cfg.pos_kind == "rope" and any(k in ATTN_KINDS
+                                          for k in cfg.superblock)
+
+
+def encode(cfg: ModelConfig, ec: ExecConfig, params: Tree,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder. frames: (B, cross_memory_len, d) post-conv-stub
+    embeddings, plus the encoder's learned positions, through non-causal
+    self-attention layers (q and k not rotated) and ``final_norm``;
+    returns the memory in the compute dtype."""
+    enc = params["encoder"]
+    x = frames.to(ec.cdtype) + enc["pos"].to(ec.cdtype)[None]
+    for i in range(cfg.n_encoder_layers):
+        lp = _layer(enc["layers"], i)
+        x = x + _self_attention(lp, x, None, cfg, causal=False)
+        h, _ = _mlp(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps), cfg,
+                    ec)
+        x = x + h
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
@@ -329,22 +422,31 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
             collect_cache_len: Optional[int] = None):
     """Training / prefill forward. tokens: (B, S) integer.
 
-    Returns (logits (B, S, vpad), aux_loss scalar); with
+    memory: (B, M, d) cross-attention memory: patch embeddings for the
+    VLM, frame embeddings for whisper (encoded here). Returns (logits
+    (B, S, vpad), aux_loss: the blocks' auxiliary losses summed and
+    divided by the layer count, a float32 scalar); with
     ``collect_cache_len`` set, also returns a ready decode cache of that
     length (the fused prefill: one forward builds the KV caches, the
-    recurrent states and the conv windows instead of S decode steps).
-    ``memory`` (cross-attention) is not ported."""
-    _check_ported(cfg)
-    if memory is not None:
-        raise NotImplementedError(f"cross-attention memory: ROADMAP.md queue "
-                                  f"1 {NOT_PORTED[CROSS_ATTN]}")
+    memory's K/V, the recurrent states and the conv windows instead of
+    S decode steps)."""
     B, S = tokens.shape
     dev = tokens.device
     x = embed_tokens(params["embed"], tokens, ec.cdtype)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    if cfg.pos_kind == "learned":
+        x = x + embed_tokens(params["pos_embed"],
+                             positions % cfg.learned_pos_len, ec.cdtype)
     rope = None
-    if ATTN in cfg.superblock:
-        positions = torch.arange(S, dtype=torch.int32, device=dev)
+    if _rotary(cfg):
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.is_encoder_decoder:
+        if memory is None:
+            raise ValueError(f"{cfg.arch_id} needs frame embeddings "
+                             f"(memory)")
+        memory = encode(cfg, ec, params, memory)
+    if memory is not None:
+        memory = memory.to(ec.cdtype)
     cache = None
     if collect_cache_len:
         if S > collect_cache_len:
@@ -354,18 +456,22 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
         cache["pos"].fill_(S)
     shared = params.get("shared_attn")
     remat = ec.remat and cache is None and torch.is_grad_enabled()
+    aux = 0.0
     for i in range(cfg.n_superblocks):
         lp = _layer(params["layers"], i)
         if remat:
-            x = checkpoint(_superblock, x, lp, shared, rope, cfg, ec,
-                           use_reentrant=False)
+            x, aux = checkpoint(_superblock, x, aux, lp, shared, rope, memory,
+                                cfg, ec, use_reentrant=False)
         else:
-            x = _superblock(x, lp, shared, rope, cfg, ec,
-                            None if cache is None else cache["layers"], i)
+            x, aux = _superblock(x, aux, lp, shared, rope, memory, cfg, ec,
+                                 None if cache is None else cache["layers"],
+                                 i)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)
-    # the reference averages the blocks' auxiliary (MoE) losses: 0 here
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if isinstance(aux, torch.Tensor):
+        aux = aux / max(cfg.n_layers, 1)
+    else:                       # no block with an auxiliary loss
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
     if cache is not None:
         return logits, aux, cache
     return logits, aux
@@ -377,10 +483,16 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
 
 def _block_cache(cfg: ModelConfig, ec: ExecConfig, kind: str, batch: int,
                  cache_len: int, device) -> Tree:
-    if kind == ATTN:
-        shape = (batch, cfg.n_kv_heads, cache_len, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=ec.cdtype, device=device),
-                "v": torch.zeros(shape, dtype=ec.cdtype, device=device)}
+    if kind in ATTN_KINDS:
+        hd = cfg.resolved_head_dim
+        shape = (batch, cfg.n_kv_heads, cache_len, hd)
+        c = {"k": torch.zeros(shape, dtype=ec.cdtype, device=device),
+             "v": torch.zeros(shape, dtype=ec.cdtype, device=device)}
+        if kind == CROSS_ATTN:
+            shape = (batch, cfg.n_kv_heads, cfg.cross_memory_len, hd)
+            c["ck"] = torch.zeros(shape, dtype=ec.cdtype, device=device)
+            c["cv"] = torch.zeros(shape, dtype=ec.cdtype, device=device)
+        return c
     if kind == MAMBA2:
         return SSM.mamba2_init_cache(cfg, batch, ec.cdtype, device)
     if kind == MLSTM:
@@ -402,11 +514,12 @@ def _stacked(tree: Tree, n: int) -> Tree:
 def init_cache(cfg: ModelConfig, ec: ExecConfig, batch: int, cache_len: int,
                ring: bool = False, *, device) -> Tree:
     """Decode cache tree on ``device``, one cache per superblock slot by
-    kind (a shared attention block gets a KV cache in every superblock).
+    kind (a shared attention block gets a KV cache in every superblock;
+    a CROSS_ATTN block also a zeroed cross cache of the memory's length,
+    which ``prefill_cross_cache`` or the fused prefill fills).
     ``cache_len`` is the KV length (the window for ring caches).
     ``cache["pos"]`` counts tokens already consumed, as a device int32
     scalar."""
-    _check_ported(cfg)
     layers = {f"b{i}_{kind}": _stacked(
         _block_cache(cfg, ec, kind, batch, cache_len, device),
         cfg.n_superblocks) for i, kind in enumerate(cfg.superblock)}
@@ -415,24 +528,32 @@ def init_cache(cfg: ModelConfig, ec: ExecConfig, batch: int, cache_len: int,
             "ring": torch.full((), ring, dtype=torch.bool, device=device)}
 
 
-def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, rope,
-                  slot: torch.Tensor, cache_len: torch.Tensor,
-                  cfg: ModelConfig):
+def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, at: Dict,
+                  cfg: ModelConfig, ec: ExecConfig) -> torch.Tensor:
     """One-token block application against one superblock's cache slice
-    (written in place); returns x. ``rope``, ``slot`` and ``cache_len``
-    (pos + 1) depend only on the position, so ``decode_step`` makes them
-    once for all layers (None where the stack has no attention)."""
-    if kind == ATTN:
+    (written in place); returns x. ``at`` holds what depends only on the
+    position, which ``decode_step`` makes once for all layers: ``rope``
+    (None without rotary positions), the cache ``slot``, ``cache_len``
+    (pos + 1) and ``cross_len`` (the memory's length), each None where
+    the stack has no use for it."""
+    if kind in ATTN_KINDS:
         q, k, v = _qkv(bp, x, cfg)
-        q = rotate(q, rope)
-        k = rotate(k, rope)
+        if at["rope"] is not None:
+            q = rotate(q, at["rope"])
+            k = rotate(k, at["rope"])
         kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"], k, v,
-                               slot)
-        o = A.decode_attention(q, kc, vc, cache_len)
+                               at["slot"])
+        o = A.decode_attention(q, kc, vc, at["cache_len"])
         o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
         x = x + torch.matmul(o, bp["wo"].to(o.dtype))
-        return x + _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
-                        cfg)
+        if kind == CROSS_ATTN:
+            o = A.decode_attention(_cross_query(bp, x, cfg),
+                                   cache_slice["ck"], cache_slice["cv"],
+                                   at["cross_len"])
+            x = x + _cross_out(bp, o, cfg)
+        h, _ = _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg,
+                    ec)
+        return x + h
     if kind == MAMBA2:
         h, new = SSM.mamba2_decode_step(bp, x, cache_slice, cfg)
     elif kind == MLSTM:
@@ -448,20 +569,31 @@ def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, rope,
 
 def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
                 tokens: torch.Tensor, ring: bool = False):
-    """One decode step. tokens: (B, 1) integer. Returns (logits (B, 1,
+    """One decode step. tokens: (B, 1) integer. A CROSS_ATTN block's
+    memory K/V must be in the cache (the fused prefill or
+    ``prefill_cross_cache`` puts them there). Returns (logits (B, 1,
     vpad), cache) with the caches written in place and ``pos`` advanced
     on the device."""
     pos = cache["pos"]
+    dev = pos.device
     x = params["embed"].to(ec.cdtype)[tokens.long()]
-    cache_len = pos + 1
-    rope = slot = None
+    if cfg.pos_kind == "learned":
+        row = torch.remainder(pos.to(torch.int64), cfg.learned_pos_len)
+        x = x + params["pos_embed"].index_select(0, row.reshape(1)).to(
+            ec.cdtype)
+    at = {"rope": None, "slot": None, "cache_len": pos + 1,
+          "cross_len": None}
     attn = [f"b{j}_{kind}" for j, kind in enumerate(cfg.superblock)
-            if kind == ATTN]
+            if kind in ATTN_KINDS]
     if attn:
-        L = cache["layers"][attn[0]]["k"].shape[3]
-        rope = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
-                           cfg.resolved_head_dim, cfg.rope_theta)
-        slot = A.cache_slot(pos, L, ring)
+        at["slot"] = A.cache_slot(pos, cache["layers"][attn[0]]["k"].shape[3],
+                                  ring)
+    if _rotary(cfg):
+        at["rope"] = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
+                                 cfg.resolved_head_dim, cfg.rope_theta)
+    if cfg.has_cross_attention:
+        at["cross_len"] = torch.full((), cfg.cross_memory_len,
+                                     dtype=torch.int32, device=dev)
     shared = params.get("shared_attn")
     for i in range(cfg.n_superblocks):
         lp = _layer(params["layers"], i)
@@ -469,9 +601,28 @@ def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
         for j, kind in enumerate(cfg.superblock):
             name = f"b{j}_{kind}"
             bp = shared if _shared(cfg, kind) else lp[name]
-            x = _decode_block(kind, bp, cs[name], x, rope, slot, cache_len,
-                              cfg)
+            x = _decode_block(kind, bp, cs[name], x, at, cfg, ec)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)
-    return logits, {"layers": cache["layers"], "pos": cache_len,
+    return logits, {"layers": cache["layers"], "pos": at["cache_len"],
                     "ring": cache["ring"]}
+
+
+def prefill_cross_cache(cfg: ModelConfig, ec: ExecConfig, params: Tree,
+                        cache: Tree, memory: torch.Tensor) -> Tree:
+    """Write every CROSS_ATTN slot's memory K/V, the constant part of the
+    decode, into ``cache`` in place and return it; whisper's frames are
+    encoded first. memory: (B, M, d)."""
+    if cfg.is_encoder_decoder:
+        memory = encode(cfg, ec, params, memory)
+    memory = memory.to(ec.cdtype)
+    for j, kind in enumerate(cfg.superblock):
+        if kind != CROSS_ATTN:
+            continue
+        name = f"b{j}_{kind}"
+        slot = cache["layers"][name]
+        for i in range(cfg.n_superblocks):
+            k, v = _memory_kv(_layer(params["layers"][name], i), memory, cfg)
+            slot["ck"][i].copy_(k.transpose(1, 2))
+            slot["cv"][i].copy_(v.transpose(1, 2))
+    return cache

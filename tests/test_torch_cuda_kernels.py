@@ -262,12 +262,17 @@ def test_cuda_flash_attention(B, S, H, Hkv, D, window, dtype):
     (8, 32, 8, 1088, 128, 1), (8, 32, 8, 1088, 128, 517),
     (8, 32, 8, 1088, 128, 1088), (2, 32, 8, 16, 128, 40),
     (2, 24, 2, 1088, 128, 517), (3, 12, 1, 100, 80, 77),
-    (8, 32, 32, 1088, 80, 1088), (8, 32, 32, 1088, 80, 300)])
+    (8, 32, 32, 1088, 80, 1088), (8, 32, 32, 1088, 80, 300),
+    (8, 16, 16, 1088, 128, 1088), (8, 6, 6, 1500, 64, 1500),
+    (8, 32, 8, 1601, 128, 1601)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_decode_attention(B, H, Hkv, L, D, cache_len, dtype):
     """Group sizes 4, 12 and 12 (MQA); cache_len 40 > L = 16 is a ring
-    cache that has wrapped. The caches are layer slices of a stacked
-    (layers, B, Hkv, L, D) tensor, as in the model."""
+    cache that has wrapped; one query head per KV head at D 128, which
+    in float32 takes half the subtiles to fit in shared memory; the cross
+    caches of whisper (L 1500) and the VLM (odd L 1601). The caches are
+    layer slices of a stacked (layers, B, Hkv, L, D) tensor, as in the
+    model."""
     _need_card()
     dt = DTYPES[dtype]
     q = _normal(4, (B, 1, H, D), dt)
@@ -286,7 +291,10 @@ def test_cuda_decode_attention(B, H, Hkv, L, D, cache_len, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,L,D", [(8, 32, 8, 1088, 128),
                                          (8, 32, 32, 1088, 80),
-                                         (8, 32, 8, 16, 128)])
+                                         (8, 32, 8, 16, 128),
+                                         (8, 16, 16, 1088, 128),
+                                         (8, 6, 6, 1500, 64),
+                                         (8, 32, 8, 1601, 128)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_decode_attention_at_split_boundaries(B, H, Hkv, L, D, dtype):
     """cache_len on, just before and just after the boundaries of the

@@ -31,7 +31,7 @@ from repro.models import params as JP
 from repro.models import transformer as JT
 from repro_torch import rng
 from repro_torch.config import ExecConfig
-from repro_torch.configs import NOT_PORTED, get_config, reduced_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.convert import tree_from_jax
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
@@ -55,7 +55,11 @@ def _configs(name):
     return jc, tc
 
 
-@pytest.mark.parametrize("arch", DENSE + ("zamba2-2.7b", "xlstm-125m"))
+@pytest.mark.parametrize("arch", DENSE + ("zamba2-2.7b", "xlstm-125m",
+                                          "granite-moe-1b-a400m",
+                                          "qwen2-moe-a2.7b",
+                                          "llama-3.2-vision-11b",
+                                          "whisper-tiny"))
 def test_configs_and_param_specs_match_reference(arch):
     jc, tc = jget_config(arch), get_config(arch)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
@@ -68,22 +72,24 @@ def test_configs_and_param_specs_match_reference(arch):
         assert b.dtype == torch.float32
     assert JP.param_count(JT.model_param_spec(jc, JExec())) == \
         P.param_count(T.model_param_spec(tc, ExecConfig()))
+    # stored for serving: drawn leaves in bf16 but the sLSTM's R and the
+    # MoE router, which stay float32
+    served = P._leaves(P.drawn_in(T.model_param_spec(tc, ExecConfig()),
+                                  torch.bfloat16, keep=T.F32_LEAVES))
+    f32_drawn = {path[-1] for path, leaf in served if leaf.dtype ==
+                 torch.float32 and leaf.init in ("normal", "embed")}
+    assert f32_drawn == ({"router"} if tc.moe is not None else
+                         {"r"} if arch == "xlstm-125m" else set())
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
-                                  "llama-3.2-vision-11b", "qwen2-moe-a2.7b",
-                                  "whisper-tiny"])
-def test_unported_archs_raise_naming_their_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
-        get_config(arch)
-    assert arch in NOT_PORTED
-
-
-def test_unported_block_kinds_raise():
-    cfg = dataclasses.replace(reduced_config("mistral-nemo-12b"),
-                              superblock=("attn", "cross_attn"))
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        T.model_param_spec(cfg)
+def test_get_config_loads_every_arch():
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert cfg.arch_id == arch
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jget_config(arch))
+    assert not hasattr(T, "NOT_PORTED") and not hasattr(T, "_check_ported")
 
 
 def test_init_matches_reference_and_chunks_bitwise(monkeypatch):
