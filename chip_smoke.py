@@ -116,7 +116,8 @@ Phases, each printing its own lines:
    small net, W=8, replay 16384 per replica, AdamW) in a copy with the
    rainbow preset, SWEEP_CYCLES cycles of RESUME_STEPS steps and an
    eval and checkpoint every cycle: the launcher with --sweep --trace 1
-   in a process of its own (fleets fleet000-p3 and fleet001-p3, each
+   in a process of its own, started before phase 15 and run beside
+   phases 15-16, which check values (fleets fleet000-p3 and fleet001-p3, each
    run's result, metrics rows and trace; each fleet's s/cycle), then
    run_sweep here interrupted after fleet001's cycle 2, its newest
    checkpoint torn and resumed (fleet000 skipped, every run's
@@ -192,7 +193,30 @@ Phases, each printing its own lines:
    every call to RMSNorm, flash attention and decode attention on the
    card, and check that the calls recorded are the launches counted;
    each case phase 3 did not hold is held here against the plain
-   version on fresh random inputs, and printed with its error.
+   version on fresh random inputs, and printed with its error;
+27. the cost counter (roofline/cost.py) on mistral-nemo-12b's prefill at
+   phase 8's shapes and on one qwen2-moe-a2.7b decode step at phase
+   22's (full width, bf16, random weights from a seeded generator): the
+   same flops, bytes and per-op counts on the card's tensors as on fake
+   cuda tensors of the same shapes, exactly; each with its roofline
+   terms, its time (median of 3), its useful flops (model_flops less
+   the embedding and position lookups, no more than counted) and their
+   share of the bf16 peak beside the card's name and power limit;
+28. expert parallelism on one card: a 1-rank NCCL group (a FileStore in
+   a temporary directory) and a (data 1, model 1) mesh; qwen2-moe-a2.7b
+   at full width serves phase 22's prompts (EP_GEN tokens) with
+   moe_impl="expert_parallel", its tokens and prefill logits bitwise
+   the scatter run's, with one all-reduce per MoE layer per step; a
+   granite-moe-1b-a400m gradient bitwise the scatter path's;
+   replica_mesh is None;
+29. the dry run (launch/dryrun.py), checked after phase 28: the grid of mistral-nemo-12b and qwen2-moe-a2.7b x
+   train_4k, prefill_32k, decode_32k x 16x16 and 2x16x16 with expert
+   parallelism (one process per arch on one host core, fake cuda
+   tensors on a fake process group, started before phase 8: 12
+   records, none failed, each with its per-device flops, bytes,
+   collective bytes and dominant term), and --arch dqn on the card
+   through the same entry point in this process (8 records, the PER
+   and C51 presets counting their kernels).
    Each phase prints its wall time, and the run its total; phases 15-18
    keep their checkpoints in a temporary directory they remove.
 
@@ -232,6 +256,7 @@ beside it, the script fails.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -1200,6 +1225,7 @@ def _rl_train_start(*args):
                              "repro_torch.launch.rl_train", *args],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env, cwd=ROOT)
+    atexit.register(_stop, proc)
     return proc, args, time.perf_counter()
 
 
@@ -1609,38 +1635,52 @@ def _tracer_cost(d: str, dev, cycle_s: float, n: int = 2000) -> None:
         f" of the traced fleet's {cycle_s:.3f} s (median, cycles 2..)")
 
 
-def phase_sweep(d: str, dev) -> None:
-    """catch_lr_seeds_sweep.json as committed (catch 10x10, the small
-    net, W=8, replay 16384 per replica, AdamW, lr {1e-3, 5e-4} x seeds
-    {0, 1, 2}: 2 packed fleets of 3), in a copy with the rainbow preset
-    (PER and C51 run), SWEEP_CYCLES cycles of RESUME_STEPS steps,
-    prepopulate RESUME_PREPOPULATE, an eval and a checkpoint every
-    cycle: (a) the launcher with --sweep --trace 1 in a process of its
-    own; (b) run_sweep here into a second root, interrupted after
-    fleet001's cycle 2, its newest checkpoint torn, resumed: fleet000
-    skipped, every run's result.json and final carry bitwise (a)'s, the
-    DQN kernels' launches counted, the card's memory back where it
-    started; (c) the launcher's --resume trains nothing; (d) a changed
-    manifest exits 2 naming its field; (e) load_policy on a run
-    directory serves the slice of its fleet's final carry."""
-    from repro_torch.api.serve import load_policy
-    from repro_torch.api.spec import ExperimentSpec
-    from repro_torch.api.sweep import SweepSpec, expand, pack, run_sweep
-    from repro_torch.api.trainers import build_packed_fleet
-    from repro_torch.checkpoint import restore_checkpoint
+def phase_sweep_start(d: str, dev):
+    """Phase 18 (a), started: catch_lr_seeds_sweep.json cut as
+    ``phase_sweep`` says, written to ``d``, through the launcher with
+    --sweep --trace 1 in a process of its own. It runs beside phases
+    15-16, which check values, and ``phase_sweep`` reads it."""
     from repro_torch.configs.dqn_nature import get_variant
-    from repro_torch.launch import rl_train
-    from repro_torch.telemetry import report
     data = json.loads(SWEEP_MANIFEST.read_text())
     data["base"]["variant"] = dataclasses.asdict(get_variant("rainbow"))
     data["base"]["schedule"].update(
         cycles=SWEEP_CYCLES, cycle_steps=RESUME_STEPS,
         prepopulate=RESUME_PREPOPULATE, eval_every=1)
     data["base"]["checkpoint"].update(every=1)
-    data["dir"] = a_root = os.path.join(d, "a")
+    data["dir"] = os.path.join(d, "a")
     manifest = os.path.join(d, "sweep.json")
     with open(manifest, "w") as f:
         json.dump(data, f)
+    return _rl_train_start("--sweep", manifest, "--trace", "1", "--device",
+                           dev.type)
+
+
+def phase_sweep(d: str, dev, out: str) -> None:
+    """catch_lr_seeds_sweep.json as committed (catch 10x10, the small
+    net, W=8, replay 16384 per replica, AdamW, lr {1e-3, 5e-4} x seeds
+    {0, 1, 2}: 2 packed fleets of 3), in a copy with the rainbow preset
+    (PER and C51 run), SWEEP_CYCLES cycles of RESUME_STEPS steps,
+    prepopulate RESUME_PREPOPULATE, an eval and a checkpoint every
+    cycle: (a) the launcher with --sweep --trace 1 in a process of its
+    own (``phase_sweep_start``; ``out`` its output); (b) run_sweep here
+    into a second root, interrupted after fleet001's cycle 2, its newest
+    checkpoint torn, resumed: fleet000 skipped, every run's result.json
+    and final carry bitwise (a)'s, the DQN kernels' launches counted,
+    the card's memory back where it started; (c) the launcher's
+    --resume trains nothing; (d) a changed manifest exits 2 naming its
+    field; (e) load_policy on a run directory serves the slice of its
+    fleet's final carry."""
+    from repro_torch.api.serve import load_policy
+    from repro_torch.api.spec import ExperimentSpec
+    from repro_torch.api.sweep import SweepSpec, expand, pack, run_sweep
+    from repro_torch.api.trainers import build_packed_fleet
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import rl_train
+    from repro_torch.telemetry import report
+    manifest = os.path.join(d, "sweep.json")
+    with open(manifest) as f:
+        data = json.load(f)
+    a_root = data["dir"]
     sweep = SweepSpec.from_json(json.dumps(data))
     runs, fleets = expand(sweep), pack(expand(sweep))
     say(f"sweep: {len(runs)} runs in fleets "
@@ -1649,8 +1689,6 @@ def phase_sweep(d: str, dev) -> None:
         "manifest: dqn, C=256, prepopulate 512, 40 cycles)")
 
     # (a) the launcher, traced
-    out = _rl_train("--sweep", manifest, "--trace", "1", "--device",
-                    dev.type)
     check("SWEEP OK runs=6 trained=6 skipped=0" in out,
           f"rl_train --sweep printed:\n{out[-2000:]}")
     check(sorted(os.listdir(os.path.join(a_root, "fleets")))
@@ -1680,8 +1718,8 @@ def phase_sweep(d: str, dev) -> None:
                  if s["name"] == "eval"]
         init = sum(s["dur"] for s in trace["spans"]
                    if s["name"] == "init") / 1e6
-        say(f"sweep {fleet.id} (launcher, traced): s/cycle "
-            f"{', '.join(f'{x:.3f}' for x in durs)}; eval s "
+        say(f"sweep {fleet.id} (launcher, traced, beside phases 15-16): "
+            f"s/cycle {', '.join(f'{x:.3f}' for x in durs)}; eval s "
             f"{', '.join(f'{x:.3f}' for x in evals)}; init {init:.3f} s; "
             f"{3 * RESUME_STEPS / statistics.median(durs):.1f} env-steps/s "
             "over 3 replicas (median cycle)")
@@ -1748,8 +1786,9 @@ def phase_sweep(d: str, dev) -> None:
           f"card memory allocated {mem0}, {mem1} after the interrupted "
           f"sweep, {mem2} after the resumed one (peak {peak})")
     # fleet000's cycles 2.. (cycle, eval, metrics and checkpoint) traced
-    # in (a)'s process and untraced in this one, which has run every
-    # earlier phase: a comparison across processes, not the tracer's cost
+    # in (a)'s process, beside phases 15-16, and untraced in this one,
+    # which has run every earlier phase: a comparison across processes,
+    # not the tracer's cost
     fid = fleets[0].id
     plain = [stamps[fid, i + 1] - stamps[fid, i]
              for i in range(1, SWEEP_CYCLES)]
@@ -3392,6 +3431,354 @@ def phase_cross_train(dev) -> dict:
     return {f"train {WHISPER_ARCH} (full, per step)": per_step}
 
 
+# phases 27-29: the cost counter and the roofline on the card (mistral's
+# prefill at phase 8's shapes, one qwen2-moe decode step at phase 22's),
+# expert parallelism over a 1-rank process group, and the dry run
+COST_DECODE_CACHE = SERVE_PROMPT + SERVE_GEN
+EP_GEN = 8
+DRYRUN_ARCHS = ("mistral-nemo-12b", "qwen2-moe-a2.7b")
+DRYRUN_SHAPES = "train_4k,prefill_32k,decode_32k"
+
+
+def _random_params(cfg, ec, seed: int, dtype=None):
+    """A full-size parameter tree on the card, drawn from a seeded
+    generator with each leaf's init scale (a fast stand-in for
+    ``init_params``: the values do not matter to these phases, only the
+    shapes, dtypes and finiteness)."""
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spec = P.drawn_in(T.model_param_spec(cfg, ec), dtype or ec.cdtype,
+                      keep=T.F32_LEAVES)
+
+    def draw(_, leaf):
+        if leaf.init == "zeros":
+            return torch.zeros(leaf.shape, dtype=leaf.dtype, device="cuda")
+        if leaf.init in ("ones", "const"):
+            return torch.full(leaf.shape, 1.0 if leaf.init == "ones"
+                              else leaf.value, dtype=leaf.dtype,
+                              device="cuda")
+        t = torch.randn(leaf.shape, generator=gen, dtype=leaf.dtype,
+                        device="cuda")
+        return t.mul_(P._scale(leaf))
+    return P._build(spec, draw)
+
+
+def _fake_like(tree, fake_mode):
+    """Fake tensors of ``tree``'s leaves' shapes, dtypes and devices."""
+    if isinstance(tree, dict):
+        return {k: _fake_like(v, fake_mode) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fake_like(v, fake_mode) for v in tree)
+    with fake_mode:
+        return torch.empty(tree.shape, dtype=tree.dtype, device=tree.device)
+
+
+def _count_both(label: str, fn, args) -> dict:
+    """``fn(*args)`` under the cost counter on the card's tensors and on
+    fake tensors of the same shapes: the two must count the same flops,
+    bytes and ops. Returns the card's summary."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline.cost import CostCounter
+    with torch.no_grad(), CostCounter() as card:
+        fn(*args)
+    torch.cuda.synchronize()
+    fake_mode = FakeTensorMode()
+    fake_args = _fake_like(args, fake_mode)
+    with torch.no_grad(), fake_mode, CostCounter() as fake:
+        fn(*fake_args)
+    a, b = card.summary(), fake.summary()
+    for key in ("flops", "bytes", "ops", "collectives"):
+        check(a[key] == b[key], f"{label}: the counter's {key} on the card "
+              f"({a[key]}) differ from fake tensors' ({b[key]})")
+    say(f"cost {label}: {a['flops']:.6e} flops, {a['bytes']:.6e} bytes, "
+        f"{sum(a['ops'].values())} ops counted, the same on card and fake "
+        f"tensors; kernels "
+        f"{ {k: v for k, v in a['ops'].items() if k.startswith('kernel.')} }")
+    return a
+
+
+def _roofline_line(label: str, counted: dict, cfg, tokens: int,
+                   fn, gpu: str) -> None:
+    """The roofline terms of ``counted``, the median of 3 timed calls of
+    ``fn`` and the share of the bf16 peak that the useful flops of
+    ``tokens`` inference tokens take (``useful_flops``: no more than the
+    counter counted)."""
+    from repro_torch.roofline.analysis import (HW, mfu, model_flops,
+                                               roofline_terms, useful_flops)
+    useful = useful_flops(cfg, tokens, "infer")
+    reference = model_flops(cfg, tokens, "infer")[0]
+    check(0 < useful <= counted["flops"], f"{label}: useful flops "
+          f"{useful:.6e} above the counted {counted['flops']:.6e}")
+    terms = roofline_terms(counted["flops"], counted["bytes"],
+                           counted["collective_bytes"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s = statistics.median(times)
+    say(f"roofline {label} on {gpu}: compute {terms['compute_s'] * 1e3:.3f}"
+        f" ms, memory {terms['memory_s'] * 1e3:.3f} ms (dominant "
+        f"{terms['dominant']}; {HW['name']}'s rates); measured "
+        f"{s * 1e3:.3f} ms (median of 3: "
+        + ", ".join(f"{t * 1e3:.3f}" for t in times)
+        + f"); useful flops {useful:.6e} of {counted['flops']:.6e} "
+        f"counted (model_flops {reference:.6e}, lookups included); share "
+        f"of the bf16 peak {mfu(useful, s):.4f}")
+
+
+def phase_cost(dev, gpu: str) -> None:
+    """Phase 27: the counter on mistral-nemo-12b's prefill (full width,
+    bf16, batch 8 x 1024) and on one qwen2-moe-a2.7b decode step (batch
+    8 over a 1088-slot cache), each the same on the card's tensors and
+    on fake ones, with its roofline terms, time and share of peak."""
+    from repro_torch import rng
+    from repro_torch.config import ExecConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    ec = ExecConfig(compute_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    params = _random_params(cfg, ec, 27)
+    batch = {"tokens": rng.randint(rng.PRNGKey(0, device=dev),
+                                   (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)}
+    step = make_prefill_step(cfg, ec)
+    step(params, batch)
+    counted = _count_both(f"{SERVE_ARCH} prefill", step, (params, batch))
+    check(counted["ops"].get("kernel.flash_attention") == cfg.n_layers,
+          f"prefill: flash attention counted {counted['ops']}")
+    _roofline_line(f"{SERVE_ARCH} prefill (8 x 1024)", counted, cfg,
+                   SERVE_BATCH * SERVE_PROMPT, lambda: step(params, batch),
+                   gpu)
+    del params, batch
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_SERVE_ARCH)
+    params = _random_params(cfg, ec, 28)
+    cache = T.init_cache(cfg, ec, SERVE_BATCH, COST_DECODE_CACHE,
+                         device=dev)
+    cache["pos"].fill_(SERVE_PROMPT)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    step = make_serve_step(cfg, ec)
+
+    def decode(p, c, t):
+        # the same slot each call: the cache's position moves back
+        out = step(p, c, t)
+        c["pos"].fill_(SERVE_PROMPT)
+        return out
+    decode(params, cache, tok)
+    counted = _count_both(f"{MOE_SERVE_ARCH} decode step", decode,
+                          (params, cache, tok))
+    _roofline_line(f"{MOE_SERVE_ARCH} decode step (batch 8, cache "
+                   f"{COST_DECODE_CACHE})", counted, cfg, SERVE_BATCH,
+                   lambda: decode(params, cache, tok), gpu)
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def _ep_serve(cfg, ec, params, prompts, gen: int):
+    """A fused prefill and ``gen - 1`` greedy steps: (tokens, the last
+    prompt position's logits)."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        logits, _, cache = T.forward(cfg, ec, params, prompts,
+                                     collect_cache_len=prompts.shape[1] + gen)
+        last = logits[:, -1, : cfg.vocab].clone()
+        out = [torch.argmax(logits[:, -1:, : cfg.vocab], -1).to(torch.int32)]
+        del logits
+        step = make_serve_step(cfg, ec)
+        for _ in range(gen - 1):
+            nxt, cache = step(params, cache, out[-1])
+            out.append(nxt)
+    return torch.cat(out, 1), last
+
+
+def phase_expert_parallel(dev) -> None:
+    """Phase 28: a 1-rank NCCL group (a FileStore in a temp dir) and a
+    (data 1, model 1) mesh. qwen2-moe-a2.7b at full width serves phase
+    22's prompts with ``moe_impl="expert_parallel"``: its tokens and
+    prefill logits bitwise the scatter run's, one all-reduce a MoE layer
+    a step; a granite-moe-1b-a400m gradient (float32 parameters, bf16
+    compute) bitwise the scatter path's; ``replica_mesh`` is None."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import rng
+    from repro_torch.compat import use_mesh
+    from repro_torch.config import ExecConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.population import replica_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import softmax_cross_entropy
+    from repro_torch.optim.base import value_and_grad
+    from repro_torch.roofline.cost import CostCounter
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            scatter = ExecConfig(compute_dtype="bfloat16")
+            ep = dataclasses.replace(scatter, moe_impl="expert_parallel")
+            cfg = get_config(MOE_SERVE_ARCH)
+            torch.cuda.empty_cache()
+            params = _random_params(cfg, scatter, 28)
+            prompts = rng.randint(rng.PRNGKey(0, device=dev),
+                                  (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+            want = _ep_serve(cfg, scatter, params, prompts, EP_GEN)
+            with use_mesh(mesh), CostCounter() as counter:
+                got = _ep_serve(cfg, ep, params, prompts, EP_GEN)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  "expert parallel: tokens or logits differ from scatter's "
+                  f"(max logit difference "
+                  f"{float((got[1].float() - want[1].float()).abs().max())})")
+            reduces = counter.ops.get("_c10d_functional.all_reduce", 0)
+            n_moe = cfg.n_layers * EP_GEN
+            check(reduces == n_moe, f"expert parallel: {reduces} all-reduces,"
+                  f" expected {cfg.n_layers} MoE layers x {EP_GEN} steps")
+            say(f"expert parallel {MOE_SERVE_ARCH} full width, bf16, batch "
+                f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {EP_GEN} tokens on a "
+                f"1-rank NCCL mesh (data 1, model 1): tokens and prefill "
+                f"logits bitwise the scatter run's; {reduces} all-reduces "
+                f"({cfg.n_layers} MoE layers x {EP_GEN} steps, "
+                f"{counter.collectives['all-reduce'] / 2:.0f} bytes)")
+            del params, prompts, got, want
+            torch.cuda.empty_cache()
+            cfg = get_config(MOE_TRAIN_ARCH)
+            params = _random_params(cfg, scatter, 29, torch.float32)
+            g = torch.Generator(device="cuda").manual_seed(29)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH,
+                                                            TRAIN_SEQ),
+                                             generator=g, device=dev)}
+            batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+            batch["mask"] = torch.ones((TRAIN_BATCH, TRAIN_SEQ),
+                                       device=dev)
+
+            def grads(ec):
+                def loss_fn(p, b):
+                    logits, aux = T.forward(cfg, ec, p, b["tokens"])
+                    ce = softmax_cross_entropy(logits, b["labels"],
+                                               cfg.vocab, b["mask"])
+                    return ce + aux, ce
+                return value_and_grad(loss_fn, params, batch, has_aux=True)
+            (l0, _), g0 = grads(scatter)
+            with use_mesh(mesh):
+                (l1, _), g1 = grads(ep)
+            torch.cuda.synchronize()
+            pairs = list(zip(_paths(g0), _paths(g1)))
+            bad = [pa for (pa, a), (_, b) in pairs if not torch.equal(a, b)]
+            check(torch.equal(l0, l1) and not bad,
+                  f"expert parallel: {MOE_TRAIN_ARCH} loss {float(l0)} / "
+                  f"{float(l1)}, gradients differ at {bad[:4]}")
+            say(f"expert parallel {MOE_TRAIN_ARCH} full size (float32 "
+                f"parameters, bf16 compute), batch {TRAIN_BATCH} x "
+                f"{TRAIN_SEQ}: loss and all {len(pairs)} gradients bitwise "
+                "the scatter path's")
+            check(replica_mesh(4) is None and replica_mesh(1) is None,
+                  "replica_mesh on one card is not None")
+            say("replica_mesh(P) on one card: None")
+            del params, g0, g1
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def _dryrun_start(out: str, *args, env=None) -> tuple:
+    """``launch.dryrun`` in a process of its own, writing its records to
+    ``out`` and its output to ``out`` + ".log"; stopped at exit if it is
+    still running (a failed phase ends the script early)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
+    with open(out + ".log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+             out, *args], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT, text=True)
+    atexit.register(_stop, proc)
+    return out, proc
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_dryrun_start(d: str) -> list:
+    """Phase 29 (LLM grid started): the two archs x 3 shapes x both
+    meshes with expert parallelism, one process per arch on one host
+    core each (fake tensors: no card work), while phases 8-28 run."""
+    return [_dryrun_start(f"{d}/{arch}.json", "--arch", arch, "--shape",
+                          DRYRUN_SHAPES, "--mesh", "both", "--moe-impl",
+                          "expert_parallel", env={"OMP_NUM_THREADS": "1"})
+            for arch in DRYRUN_ARCHS]
+
+
+def phase_dryrun_dqn(d: str) -> tuple:
+    """Phase 29's DQN grid: each preset's cycle on the card under the
+    counter, through ``launch.dryrun``'s entry point with --arch dqn in
+    this process (the card and the kernels are already up). Returns
+    (records file, exit code, its output)."""
+    from repro_torch.launch import dryrun
+    out = f"{d}/dqn.json"
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = dryrun.main(["--arch", "dqn", "--device", "cuda", "--out", out])
+    return out, rc, text.getvalue()
+
+
+def phase_dryrun_check(runs: list, dqn: tuple) -> None:
+    """Phase 29: the LLM grid's processes (``runs``) and the DQN grid
+    (``dqn``) exit 0; 12 LLM records and 8 DQN records, none failed,
+    each with its per-device costs and dominant term; the PER and C51
+    presets count their kernels."""
+    done = []
+    for out, proc in runs:
+        proc.wait(timeout=600)
+        done.append((out, proc.returncode, Path(out + ".log").read_text()))
+    records = []
+    for out, rc, text in [*done, dqn]:
+        tail = "\n".join(text.strip().splitlines()[-3:])
+        check(rc == 0, f"dry run {out}: exit {rc}: {text[-2000:]}")
+        records.extend(json.loads(Path(out).read_text()))
+        say(f"dry run {Path(out).stem}: {tail}")
+    llm = [r for r in records if r["arch"] != "dqn"]
+    dqn = [r for r in records if r["arch"] == "dqn"]
+    check(len(llm) == 12 and len(dqn) == 8
+          and not any("error" in r for r in records),
+          f"dry run: {len(llm)} LLM and {len(dqn)} DQN records, errors "
+          f"{[r.get('error') for r in records if 'error' in r]}")
+    keys = ("flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "dominant", "hbm_gb_per_device",
+            "model_flops_global", "useful_ratio", "trace_s")
+    for r in llm:
+        check(all(k in r for k in keys) and r["flops_per_device"] > 0,
+              f"dry run record {r['arch']} {r['shape']} {r['mesh']}: {r}")
+        say(f"dry run {r['arch']} {r['shape']} {r['mesh']}: "
+            f"{r['flops_per_device']:.4e} flop/dev, "
+            f"{r['bytes_per_device']:.4e} B/dev, coll "
+            f"{r['collective_bytes_per_device']:.4e} B/dev, dominant "
+            f"{r['dominant']}, {r['hbm_gb_per_device']:.2f} GB/dev, "
+            f"useful {r['useful_ratio']:.3f}, trace {r['trace_s']} s")
+    for r in dqn:
+        name = r["variant"]
+        want = set()
+        if name in ("per", "rainbow_lite", "rainbow"):
+            want |= {"segment_tree", "tree_build"}
+        if name in ("c51", "rainbow"):
+            want.add("categorical_projection")
+        check(set(r["kernel_calls"]) == want, f"dry run dqn {name}: kernels "
+              f"{r['kernel_calls']}, expected {sorted(want)}")
+        say(f"dry run dqn {name} (1x1, on the card): "
+            f"{r['flops_per_device']:.4e} flop, {r['bytes_per_device']:.4e}"
+            f" B, kernels {r['kernel_calls']}, {r['trace_s']} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3449,6 +3836,10 @@ def main() -> int:
           type(trainer)(short, device="cuda"), carry,
           f"C={PROFILED_STEPS}: ")
     del trainer, carry
+    # phase 29's LLM grid traces fake tensors on the host's cores while
+    # the card runs phases 8-28; it is checked after phase 28
+    dry = tempfile.TemporaryDirectory()
+    runs = timed("29 (LLM dry run, started)", phase_dryrun_start, dry.name)
     # phases 8-25 record each case they give the three LLM kernels;
     # phase 26 holds those phase 3 did not
     recording = _recorded_calls()
@@ -3481,12 +3872,19 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB with cuBLAS's "
         "per-stream workspaces cleared")
     t0 = time.perf_counter()
-    timed("15 (resume)", phase_resume, dev)
-    with tempfile.TemporaryDirectory() as d:
-        catch_dir = timed("16 (launcher)", phase_launcher, d, gpu)
-        timed("17 (policy serving)", phase_policy_serving, dev, catch_dir)
-    with tempfile.TemporaryDirectory() as d:
-        timed("18 (sweep)", phase_sweep, d, dev)
+    with tempfile.TemporaryDirectory() as sweep_dir:
+        # phase 18's launcher run goes beside phases 15-16, which check
+        # values; it ends before phase 17 measures serving
+        sweep = timed("18 (sweep launcher, started)", phase_sweep_start,
+                      sweep_dir, dev)
+        timed("15 (resume)", phase_resume, dev)
+        with tempfile.TemporaryDirectory() as d:
+            catch_dir = timed("16 (launcher)", phase_launcher, d, gpu)
+            sweep_out = timed("18 (sweep launcher, waited for)",
+                              _rl_train_wait, sweep)
+            timed("17 (policy serving)", phase_policy_serving, dev,
+                  catch_dir)
+        timed("18 (sweep)", phase_sweep, sweep_dir, dev, sweep_out)
     say(f"checkpoint, serving and sweep phases (resume, launcher, serving, "
         f"sweep): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3505,6 +3903,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     recording.__exit__(None, None, None)
     timed("26 (parity at the paths' cases)", phase_path_parity, dev)
+    t0 = time.perf_counter()
+    timed("27 (cost and roofline)", phase_cost, dev, gpu)
+    timed("28 (expert parallel)", phase_expert_parallel, dev)
+    dqn = timed("29 (DQN dry run)", phase_dryrun_dqn, dry.name)
+    timed("29 (dry run)", phase_dryrun_check, runs, dqn)
+    dry.cleanup()
+    say(f"cost, expert-parallel and dry-run phases: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

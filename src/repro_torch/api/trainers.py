@@ -46,9 +46,11 @@ from repro_torch.core.baseline import BaselineCarry, make_baseline_chunk
 from repro_torch.core.concurrent import (EVAL_STREAM_TAG,
                                          make_concurrent_cycle, prepopulate,
                                          replica_key)
-from repro_torch.core.population import (eval_keys, make_replica_init,
+from repro_torch.core.population import (eval_keys, gather_replicas,
+                                         make_replica_init, own_replicas,
                                          packed_seeds, population_init,
-                                         replica, seed_array, tree_map)
+                                         replica, replica_mesh, seed_array,
+                                         tree_map)
 from repro_torch.core.replay import replay_init
 from repro_torch.core.synchronized import evaluate, sampler_init
 from repro_torch.envs.games import make_env
@@ -86,6 +88,10 @@ class Trainer(Protocol):
     def eval_key(self, cycle_index: int) -> torch.Tensor: ...
 
     def steps(self, carry) -> torch.Tensor: ...
+
+    def whole(self, carry) -> Any: ...
+
+    def own(self, carry) -> Any: ...
 
 
 TRAINERS: Dict[str, Callable[..., Trainer]] = {}
@@ -166,7 +172,14 @@ class PopulationTrainer:
     ``device``: the carry has a leading replica axis P on every leaf,
     and ``cycle``, ``eval`` and ``steps`` give (P,) values. Replica r
     follows the standalone run with seed ``seeds[r]`` (its integers
-    exactly, its floats to rounding; ``core.population``)."""
+    exactly, its floats to rounding; ``core.population``).
+
+    Under a process group whose ranks divide P (``replica_mesh``) each
+    rank's carry holds its P/D replicas, and ``cycle``'s metrics,
+    ``eval`` and ``steps`` are gathered to all P; ``whole`` gathers a
+    carry (for a checkpoint) and ``own`` takes this rank's share of a
+    whole one (a restored checkpoint). On one rank both return the carry
+    as it is."""
 
     def __init__(self, spec: ExperimentSpec, device: str = "cuda",
                  seeds=None):
@@ -189,14 +202,38 @@ class PopulationTrainer:
                 "exactly the packed replica count")
         self._init = make_replica_init(c.env, c.q_init, c.qf, c.opt, c.dcfg,
                                        c.obs, device=self.device)
-        self.cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
-                                           obs=c.obs, q_logits=c.qlog)
+        self._cycle = make_concurrent_cycle(c.env, c.qf, c.opt, c.dcfg,
+                                            obs=c.obs, q_logits=c.qlog)
+        self.mesh = replica_mesh(spec.seeds)
+        self.local_seeds = self.seeds
+        if self.mesh is not None:
+            if self.mesh.get_coordinate() is None:
+                raise ValueError(
+                    f"{spec.seeds} replicas split over the first "
+                    f"{self.mesh.size()} ranks; run as many processes as "
+                    "divide the replica count")
+            self.local_seeds = own_replicas(self.seeds, self.mesh,
+                                            spec.seeds)
 
     def init_carry(self, key=None):
         # the replica seeds determine every RNG stream; ``key`` is taken
         # for the protocol's sake and must be None
         assert key is None, "population init derives all RNG from seeds"
-        return population_init(self._init, self.seeds.tolist())
+        return population_init(self._init, self.local_seeds.tolist())
+
+    def cycle(self, carry):
+        carry, m = self._cycle(carry)
+        return carry, self.whole(m)
+
+    def whole(self, tree):
+        """The whole population of ``tree`` (this rank's replicas)."""
+        return tree if self.mesh is None else gather_replicas(tree,
+                                                              self.mesh)
+
+    def own(self, tree):
+        """This rank's replicas of a whole population's ``tree``."""
+        return tree if self.mesh is None else own_replicas(
+            tree, self.mesh, self.replicas)
 
     def init_template(self):
         """The population carry's structure, shapes and dtypes as meta
@@ -208,15 +245,17 @@ class PopulationTrainer:
         """ε=0.05 greedy returns of each replica's μ-only network, (P,)."""
         c, sched = self._c, self.spec.schedule
         with torch.no_grad():
-            return evaluate(c.env, c.qf, carry.params, key, c.dcfg,
-                            n_episodes=sched.eval_episodes, obs=c.obs,
-                            max_steps=c.env.max_steps + 2)
+            return self.whole(evaluate(
+                c.env, c.qf, carry.params, key, c.dcfg,
+                n_episodes=sched.eval_episodes, obs=c.obs,
+                max_steps=c.env.max_steps + 2))
 
     def eval_key(self, cycle_index: int) -> torch.Tensor:
-        return eval_keys(self.seeds.to(self.device), cycle_index)
+        """This rank's replicas' keys (all P on one rank)."""
+        return eval_keys(self.local_seeds.to(self.device), cycle_index)
 
     def steps(self, carry) -> torch.Tensor:
-        return carry.step
+        return self.whole(carry.step)
 
 
 class _SingleReplicaTrainer:
@@ -269,6 +308,12 @@ class _SingleReplicaTrainer:
 
     def steps(self, carry) -> torch.Tensor:
         return carry.step[None]
+
+    def whole(self, carry):
+        return carry
+
+    def own(self, carry):
+        return carry
 
 
 @register_trainer("concurrent")

@@ -3,8 +3,12 @@
 
 A tree (nested dicts, tuples and NamedTuples of tensors) is flattened to
 path-keyed arrays, and restored into the structure of a template, with
-its tensors placed on a chosen ``device`` (where the reference places
-them on shardings). Steps are kept under ``<dir>/step_<n>.npz``.
+its tensors placed on a chosen ``device``, or, as the reference places
+them on shardings, each spread over the template's DTensor mesh by the
+``placements`` given (``distribute_tensor``), so a checkpoint written on
+one mesh restores onto another. A DTensor leaf is saved whole: every
+rank gathers it and rank 0 writes. Steps are kept under
+``<dir>/step_<n>.npz``.
 
 The layout is the JAX package's, byte for byte in names, shapes and
 dtypes, so a checkpoint written by either package restores in the other:
@@ -60,13 +64,14 @@ RESTORE_ERRORS = (OSError, ValueError, EOFError, KeyError,
 _WORD = 0xFFFFFFFF
 
 
-def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    if isinstance(tree, dict):
+def _flatten(tree: Any, prefix: str = "",
+             leaf=lambda node: False) -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict) and not leaf(tree):
         for k in sorted(tree):
-            yield from _flatten(tree[k], f"{prefix}{k}{SEP}")
-    elif isinstance(tree, (tuple, list)):
+            yield from _flatten(tree[k], f"{prefix}{k}{SEP}", leaf)
+    elif isinstance(tree, (tuple, list)) and not leaf(tree):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}__{i}{SEP}")
+            yield from _flatten(v, f"{prefix}__{i}{SEP}", leaf)
     else:
         yield prefix.rstrip(SEP), tree
 
@@ -118,12 +123,27 @@ def _narrow(path: str, a: np.ndarray) -> np.ndarray:
     return a.astype(np.uint32)
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective: every rank calls it)."""
+    from repro_torch.kernels.route import is_sharded
+    return leaf.full_tensor() if is_sharded(leaf) else leaf
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the
+    only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
+    flat = [(p, _whole(leaf)) for p, leaf in _flatten(tree)]
+    path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    if not _writer():
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = list(_flatten(tree))
     host = _to_host([leaf for _, leaf in flat])
     arrays = {p: _narrow(p, a) for (p, _), a in zip(flat, host)}
-    path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -177,10 +197,13 @@ def _unflatten_into(template: Any, arrays, prefix: str = ""):
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, template: Any,
-                       device=None) -> Any:
+                       device=None, placements: Optional[Any] = None) -> Any:
     """The checkpoint at ``step`` in the structure of ``template`` (whose
     leaves give each tensor's shape and dtype; meta tensors will do), on
-    ``device`` (the CPU when None)."""
+    ``device`` (the CPU when None). With ``placements`` (a tree like the
+    template's of DTensor placements, one per mesh dim) each leaf is
+    spread over its template leaf's mesh (the template's leaves are
+    DTensors then), on the mesh's device."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
@@ -211,10 +234,27 @@ def restore_checkpoint(ckpt_dir: str, step: int, template: Any,
             f"(dtype or shape: {wrong[:8]}) — was it written by a run with "
             "a different spec?")
     dev = torch.device("cpu") if device is None else torch.device(device)
-    held = {p: torch.from_numpy(
-        arrays[p].astype(np.int64) if t.dtype == torch.int64 else arrays[p]
-    ).to(dev) for p, t in want.items()}
+    placed = {} if placements is None else dict(_flatten(placements,
+                                                          leaf=_is_placed))
+    held = {}
+    for p, t in want.items():
+        a = torch.from_numpy(arrays[p].astype(np.int64)
+                             if t.dtype == torch.int64 else arrays[p])
+        if p in placed:
+            from torch.distributed.tensor import distribute_tensor
+            mesh = t.device_mesh
+            held[p] = distribute_tensor(a.to(mesh.device_type), mesh,
+                                        list(placed[p]))
+        else:
+            held[p] = a.to(dev)
     return _unflatten_into(template, held)
+
+
+def _is_placed(node) -> bool:
+    """A placements leaf: a list or tuple of DTensor placements."""
+    from torch.distributed.tensor import Placement
+    return (isinstance(node, (list, tuple)) and len(node) > 0
+            and all(isinstance(x, Placement) for x in node))
 
 
 def list_steps(ckpt_dir: str) -> List[int]:
@@ -278,7 +318,8 @@ def trim_metrics_jsonl(path: str, start_cycle: int) -> None:
         raise
 
 
-def restore_latest(ckpt_dir: str, template: Any, device=None
+def restore_latest(ckpt_dir: str, template: Any, device=None,
+                   placements: Optional[Any] = None
                    ) -> Tuple[Optional[int], Any, List[str]]:
     """Restore the newest *restorable* checkpoint.
 
@@ -293,7 +334,7 @@ def restore_latest(ckpt_dir: str, template: Any, device=None
         path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
         try:
             return step, restore_checkpoint(ckpt_dir, step, template,
-                                            device), skipped
+                                            device, placements), skipped
         except RESTORE_ERRORS as e:
             skipped.append(f"{path}: {type(e).__name__}: {e}")
     return None, None, skipped

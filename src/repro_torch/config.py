@@ -6,7 +6,10 @@
 defaults, properties and validation as the reference, so a config
 compares field for field. ``ExecConfig`` keeps every field so that an
 ``ExperimentSpec`` JSON parses unchanged; of its knobs the port reads
-``compute_dtype``, ``vocab_pad`` and ``mlstm_chunked``.
+``compute_dtype``, ``vocab_pad``, ``mlstm_chunked``, ``moe_impl``,
+``fsdp`` and ``kv_seq_shard`` (the last three in the sharding rules and
+the expert-parallel MoE). ``ShapeConfig``, the four input shapes and
+``MeshConfig`` are the reference's, for the dry run.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch
 
 __all__ = ["ExecConfig", "VariantConfig", "DQNConfig", "ATTN", "CROSS_ATTN",
            "MAMBA2", "MLSTM", "SLSTM", "BLOCK_KINDS", "MoEConfig",
-           "SSMConfig", "XLSTMConfig", "ModelConfig"]
+           "SSMConfig", "XLSTMConfig", "ModelConfig", "ShapeConfig",
+           "INPUT_SHAPES", "TRAIN_4K", "PREFILL_32K", "DECODE_32K",
+           "LONG_500K", "MeshConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,3 +264,37 @@ class ModelConfig:
             assert self.xlstm is not None
         if CROSS_ATTN in self.superblock:
             assert self.cross_memory_len > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned (input-shape) workload."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Production mesh description."""
+
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")

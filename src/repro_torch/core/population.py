@@ -22,8 +22,15 @@ reference's own vmapped population misses its standalone runs the same
 way, by ~7e-7 relative after two cycles). Two population runs are
 bitwise equal.
 
-The reference's ``replica_mesh`` (the replica axis sharded over several
-devices) is not ported: the port runs a population on one card.
+``replica_mesh`` is the reference's rule for sharding the replica axis:
+a 1-D ``replica`` mesh over the largest number of the running process
+group's ranks (one card each) that divides P, or None where only one
+rank would take part, as on one card. On such a mesh each rank runs its
+P/D consecutive replicas through the same batched cycle, with no
+collective (replicas are independent); ``gather_replicas`` puts the
+ranks' replicas back together along the replica axis (the metrics, the
+evaluations, a checkpoint) and ``own_replicas`` takes a rank's share of
+a whole population (a restored checkpoint).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ __all__ = [
     "seed_array", "packed_seeds", "make_replica_init", "population_init",
     "make_population_cycle", "population_evaluate", "eval_keys",
     "tree_map", "stack_replicas", "with_replicas", "replica",
+    "replica_mesh", "replica_mesh_size", "own_replicas", "gather_replicas",
 ]
 
 
@@ -194,3 +202,63 @@ def eval_keys(seeds: torch.Tensor, step) -> torch.Tensor:
         step = torch.full((), int(step), dtype=torch.int32,
                           device=seeds.device)
     return replica_key(EVAL_STREAM_TAG, seeds, step)
+
+
+def replica_mesh_size(n_replicas: int, n_ranks: int) -> int:
+    """The reference's divisor rule: the largest count of at most
+    ``n_ranks`` ranks that divides P (1: no mesh)."""
+    d = min(n_ranks, n_replicas)
+    while d > 1 and n_replicas % d != 0:
+        d -= 1
+    return max(d, 1)
+
+
+def replica_mesh(n_replicas: int):
+    """A 1-D ``replica`` DeviceMesh over the first ``replica_mesh_size``
+    ranks of the running process group, or None when only one rank would
+    take part (no group, or one card: the batched cycle alone)."""
+    import torch.distributed as dist
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    d = replica_mesh_size(n_replicas, n)
+    if d <= 1:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return DeviceMesh(device_type, torch.arange(d),
+                      mesh_dim_names=("replica",))
+
+
+def own_replicas(tree: Any, mesh, n_replicas: int) -> Any:
+    """This rank's P/D consecutive replicas of a whole population (a
+    copy of each leaf's rows)."""
+    n = n_replicas // mesh.size()
+    r = mesh.get_local_rank()
+    return tree_map(lambda t: t[r * n:(r + 1) * n].clone(), tree)
+
+
+def gather_replicas(tree: Any, mesh) -> Any:
+    """The whole population on every rank: each leaf's rows all-gathered
+    along the replica axis in rank order, which is replica order."""
+    import torch.distributed as dist
+    group = mesh.get_group()
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        # bool goes as bytes: not every backend reduces or gathers bool
+        src = (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
+        parts = [torch.empty_like(src) for _ in range(mesh.size())]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts)
+        return out.to(torch.bool) if t.dtype == torch.bool else out
+
+    def walk(node):
+        # dict keys in sorted order: every rank gathers the same leaf in
+        # the same collective, whatever order its dict was built in
+        if isinstance(node, dict):
+            done = {k: walk(node[k]) for k in sorted(node)}
+            return {k: done[k] for k in node}
+        if isinstance(node, tuple):
+            vals = [walk(v) for v in node]
+            return (type(node)(*vals) if hasattr(node, "_fields")
+                    else tuple(vals))
+        return gather(node)
+    return walk(tree)

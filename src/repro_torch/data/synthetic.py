@@ -56,3 +56,12 @@ class SyntheticLM:
         mask = torch.ones((B, S), dtype=torch.float32, device=key.device)
         mask[:, -1] = 0.0
         return {"tokens": toks, "labels": labels, "mask": mask}
+
+
+def lm_batch_specs(vocab: int, seq_len: int, global_batch: int):
+    """``meta`` tensors of ``SyntheticLM.batch``'s shapes and dtypes (the
+    dry run's stand-ins, no memory)."""
+    shape = (global_batch, seq_len)
+    return {"tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "labels": torch.empty(shape, dtype=torch.int32, device="meta"),
+            "mask": torch.empty(shape, dtype=torch.float32, device="meta")}

@@ -18,7 +18,7 @@ that schedule on the CPU bit for bit. Every output element is written by
 the kernel (see the note in the source), so the output comes from
 ``build.output``, without deterministic mode's NaN fill. The projection
 is per row, so a population's (R, B, K) targets go through one launch
-as R B rows.
+as R B rows. Fake tensors take a shape-only branch (``route``).
 """
 
 from __future__ import annotations
@@ -27,12 +27,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import (
     categorical_projection as categorical_projection_plain)
 
 __all__ = ["MAX_ATOMS", "linspace", "support", "categorical_projection",
-           "categorical_projection_plain", "projection_hat"]
+           "categorical_projection_plain", "projection_hat",
+           "categorical_projection_work"]
 
 MAX_ATOMS = 512
 
@@ -123,23 +124,45 @@ def categorical_projection(probs: torch.Tensor, rewards: torch.Tensor,
     probs = probs.reshape(-1, K)
     rewards = rewards.reshape(-1)
     d32 = dones.reshape(-1).to(torch.float32)
-    if probs.device.type == "cpu":
-        return categorical_projection_plain(
-            probs, rewards, d32, v_min=v_min, v_max=v_max,
-            gamma_n=gamma_n).reshape(shape)
+    kw = {"v_min": v_min, "v_max": v_max, "gamma_n": gamma_n}
+    return route.call("categorical_projection",
+                      lambda: categorical_projection_work(probs), _launch,
+                      categorical_projection_plain, _shape_only, kw,
+                      probs, rewards, d32,
+                      differentiable=False).reshape(shape)
+
+
+def categorical_projection_work(probs: torch.Tensor):
+    """(flops, bytes) of one call on (B, K) rows: probs, rewards and
+    dones read and (B, K) written once; per row g = gamma_n (1 - d) (2
+    operations) and per (row, source atom) 14 (b_j, its floor and
+    ceiling, the two weights, two products and two adds)."""
+    B, K = probs.shape
+    return B * 2 + B * K * 14, (2 * B * K + 2 * B) * 4
+
+
+def _shape_only(probs, rewards, dones, v_min, v_max, gamma_n):
+    return torch.empty(probs.shape, dtype=torch.float32, device=probs.device)
+
+
+def _launch(probs: torch.Tensor, rewards: torch.Tensor, d32: torch.Tensor,
+            v_min: float, v_max: float, gamma_n: float) -> torch.Tensor:
+    """The kernel's launch on (B, K) rows, counted in
+    ``categorical_projection.launches``."""
+    K = probs.shape[-1]
     if probs.dtype != torch.float32 or rewards.dtype != torch.float32:
         raise ValueError(f"probs and rewards must be float32, got "
                          f"{probs.dtype} and {rewards.dtype}")
     B = probs.shape[0]
     if not 1 <= K <= MAX_ATOMS:
         raise ValueError(f"atom count {K} outside [1, {MAX_ATOMS}]")
-    if rewards.device != probs.device or dones.device != probs.device:
+    if rewards.device != probs.device or d32.device != probs.device:
         raise ValueError("probs, rewards and dones must share a device")
     delta, db = _spacing(K, v_min, v_max)
     probs = probs.contiguous()
     rewards = rewards.contiguous()
     d32 = d32.contiguous()
-    out = build.output(shape, torch.float32, probs.device)
+    out = build.output(probs.shape, torch.float32, probs.device)
     err = _lib().categorical_projection(
         probs.data_ptr(), rewards.data_ptr(), d32.data_ptr(), out.data_ptr(),
         B, K, v_min, v_max, gamma_n, delta, db, build.stream_of(probs))

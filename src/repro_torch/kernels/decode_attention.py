@@ -11,7 +11,8 @@ states in the same launch; on a CPU tensor it runs the plain version of
 ``kernels/ref.py``. ``decode_attention_split`` emulates the kernel's
 split and fixed-order combine in plain PyTorch, and
 ``kernel_split_plan`` reports the split the kernel picks; the tests use
-both. Forward only.
+both. Forward only. Fake tensors take a shape-only branch and DTensors
+run on their local shards, along batch and heads (``route``).
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ from typing import Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import decode_attention as _plain
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "decode_attention_split", "kernel_split_plan", "split_chunk",
-           "MAX_HEAD_DIM"]
+           "decode_attention_work", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 
@@ -126,9 +127,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     bfloat16; cache_len: () int32 on q's device (an int is placed there).
     CUDA tensors go through the kernel (its launches are counted in
     ``decode_attention.launches``); CPU tensors through the plain
-    version."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, cache_len)
+    version; fake tensors through the shape-only branch (``route``)."""
+    if route.is_sharded(q, k_cache, v_cache, cache_len):
+        return route.sharded(
+            decode_attention,
+            (("b", None, "h", None), ("b", "h", None, None),
+             ("b", "h", None, None),
+             () if isinstance(cache_len, torch.Tensor) else None),
+            ("b", None, "h", None), q, k_cache, v_cache, cache_len)
+    return route.call("decode_attention",
+                      lambda: decode_attention_work(q, k_cache), _launch,
+                      decode_attention_plain, _shape_only,
+                      {"cache_len": cache_len}, q, k_cache, v_cache,
+                      differentiable=False)
+
+
+def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor):
+    """(flops, bytes) of one call, from the shapes alone: q read and the
+    output written once, all L rows of both caches read once, and
+    cache_len; 4 D operations per (query head, row). An upper bound
+    where the cache is not full: the kernel reads min(cache_len, L)
+    rows, but cache_len lives on the device, and reading it here would
+    make the host wait on every step."""
+    B, _, H, D = q.shape
+    _, Hkv, L, _ = k_cache.shape
+    return (4 * D * B * H * L,
+            (2 * B * H * D + 2 * B * Hkv * L * D) * q.element_size() + 4)
+
+
+def _shape_only(q, k_cache, v_cache, cache_len) -> torch.Tensor:
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """The kernel's launch, counted in ``decode_attention.launches``."""
     B, one, H, D = q.shape
     _, Hkv, L, _ = k_cache.shape
     shape = (f"q {tuple(q.shape)}, caches {tuple(k_cache.shape)} and "

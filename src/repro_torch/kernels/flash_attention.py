@@ -10,7 +10,9 @@ ring); float32, and bfloat16 with D % 16 == 8, run the scalar float32
 body. On a CPU tensor it runs the plain version of ``kernels/ref.py`` in
 the kernel layout (B, H, S, D). A call that must record a gradient
 goes through ``recompute.PlainRecompute``: the kernel forward, the plain
-version's autograd backward (the reference's ``custom_vjp`` rule).
+version's autograd backward (the reference's ``custom_vjp`` rule). Fake
+tensors take a shape-only branch and DTensors run on their local shards,
+along batch and heads (``route``).
 """
 
 from __future__ import annotations
@@ -20,11 +22,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.recompute import PlainRecompute, needs_grad
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import flash_attention as _plain
 
-__all__ = ["flash_attention", "flash_attention_plain", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_work",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 
@@ -55,15 +57,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16. ``window``: keys with kpos > qpos - window only. CUDA
     tensors go through the kernel (its launches are counted in
     ``flash_attention.launches``); CPU tensors through the plain
-    version. On the card a call that needs a gradient gets it from the
-    plain version (``recompute``)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
-    if needs_grad(q, k, v):
-        return PlainRecompute.apply(
-            _launch, flash_attention_plain,
-            {"causal": causal, "window": window}, q, k, v)[0]
-    return _launch(q, k, v, causal, window)
+    version; fake tensors through the shape-only branch (``route``). On
+    the card a call that needs a gradient gets it from the plain version
+    (``recompute``)."""
+    if route.is_sharded(q, k, v):
+        lab = ("b", None, "h", None)
+        return route.sharded(
+            lambda q, k, v: flash_attention(q, k, v, causal, window),
+            (lab, lab, lab), lab, q, k, v)
+    return route.call("flash_attention",
+                      lambda: flash_attention_work(q, k, causal, window),
+                      _launch, flash_attention_plain, _shape_only,
+                      {"causal": causal, "window": window}, q, k, v)
+
+
+def _pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the mask keeps."""
+    if not causal:
+        return S * S
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_attention_work(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                         window: Optional[int]):
+    """(flops, bytes) of one call: q, k, v read and the output written
+    once; 4 D operations per (query head, kept pair) (QK^T and PV)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    return (4 * D * B * H * _pairs(S, causal, window),
+            (2 * B * S * H * D + 2 * B * S * Hkv * D) * q.element_size())
+
+
+def _shape_only(q, k, v, causal, window) -> torch.Tensor:
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

@@ -7,7 +7,8 @@ version of ``kernels/ref.py``. The two agree to float rounding: the
 kernel sums the squares in another order. A call that must record a
 gradient goes through ``recompute.PlainRecompute``: the kernel forward,
 the plain version's autograd backward (the reference's ``custom_vjp``
-rule).
+rule). Fake tensors take a shape-only branch and DTensors run on their
+local shards (``route``).
 """
 
 from __future__ import annotations
@@ -17,11 +18,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.recompute import PlainRecompute, needs_grad
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import rmsnorm as rmsnorm_plain
 
-__all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_plan", "RmsnormPlan"]
+__all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_plan", "RmsnormPlan",
+           "rmsnorm_work"]
 
 # the units per thread the kernel is compiled for (csrc/rmsnorm.cu,
 # launch): 16-byte vectors, and single values for a D that is no
@@ -106,14 +107,29 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     """x: (..., D) float32 or bfloat16; gamma: (D,) float32. Returns x's
     shape and type. CUDA tensors go through the kernel (its launches are
     counted in ``rmsnorm.launches``); CPU tensors through the plain
-    version. On the card a call that needs a gradient gets it from the
-    plain version (``recompute``)."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, gamma, eps)
-    if needs_grad(x, gamma):
-        return PlainRecompute.apply(_launch, rmsnorm_plain, {"eps": eps},
-                                    x, gamma)[0]
-    return _launch(x, gamma, eps)
+    version; fake tensors through the shape-only branch (``route``). On
+    the card a call that needs a gradient gets it from the plain version
+    (``recompute``)."""
+    if route.is_sharded(x, gamma):
+        rows = tuple(f"d{i}" for i in range(x.dim() - 1))
+        return route.sharded(lambda x, g: rmsnorm(x, g, eps),
+                             (rows + (None,), (None,)), rows + (None,),
+                             x, gamma)
+    return route.call("rmsnorm", lambda: rmsnorm_work(x, gamma), _launch,
+                      rmsnorm_plain, _shape_only, {"eps": eps}, x, gamma)
+
+
+def rmsnorm_work(x: torch.Tensor, gamma: torch.Tensor):
+    """(flops, bytes) of one call: x read and written once, gamma read;
+    4 float32 operations per element (square-add, two products, the
+    cast)."""
+    n = x.numel()
+    return 4 * n, 2 * n * x.element_size() + gamma.numel() * 4
+
+
+def _shape_only(x: torch.Tensor, gamma: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    return torch.empty_like(x)
 
 
 def _launch(x: torch.Tensor, gamma: torch.Tensor,

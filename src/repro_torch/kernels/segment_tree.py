@@ -24,7 +24,8 @@ by its kernel (see the note in the source), so the outputs come from
 ``build.output``, without deterministic mode's NaN fill.
 
 ``segment_tree_rounds`` and ``tree_build_blocked`` replay the two
-kernels' schedules on the CPU, with the kernels' index arithmetic.
+kernels' schedules on the CPU, with the kernels' index arithmetic. Fake
+tensors take a shape-only branch (``route``).
 """
 
 from __future__ import annotations
@@ -34,13 +35,14 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import segment_tree_sample as segment_tree_sample_plain
 
 __all__ = ["next_pow2", "tree_build", "tree_build_plain", "tree_build_plan",
            "tree_build_blocked", "segment_tree_sample",
            "segment_tree_sample_plain", "segment_tree_rounds",
-           "descent_rounds", "empty_launch", "DESCENT_LEVELS", "BUILD_SPAN"]
+           "descent_rounds", "empty_launch", "DESCENT_LEVELS", "BUILD_SPAN",
+           "tree_build_work", "segment_tree_work"]
 
 # tree levels the descent loads per round (csrc/segment_tree.cu, kLevels)
 DESCENT_LEVELS = 7
@@ -178,8 +180,26 @@ def tree_build(priority: torch.Tensor) -> torch.Tensor:
     one launch per entry of ``tree_build_plan`` for all R trees together
     (counted in ``tree_build.launches``); CPU tensors through
     ``tree_build_plain``."""
-    if priority.device.type == "cpu":
-        return tree_build_plain(priority)
+    return route.call("tree_build", lambda: tree_build_work(priority),
+                      _launch_build, tree_build_plain, _build_shape_only, {},
+                      priority, differentiable=False)
+
+
+def tree_build_work(priority: torch.Tensor):
+    """(flops, bytes) of one call: the R P leaves read and the (R, 2P)
+    trees written once, P - 1 adds a tree."""
+    P = priority.shape[-1]
+    R = priority.numel() // max(P, 1)
+    return R * (P - 1), 3 * R * P * 4
+
+
+def _build_shape_only(priority: torch.Tensor) -> torch.Tensor:
+    return torch.empty(priority.shape[:-1] + (2 * priority.shape[-1],),
+                       dtype=torch.float32, device=priority.device)
+
+
+def _launch_build(priority: torch.Tensor) -> torch.Tensor:
+    """The build's launches, counted in ``tree_build.launches``."""
     if priority.dim() not in (1, 2):
         raise ValueError(f"priority must be (P,) or (R, P), got "
                          f"{tuple(priority.shape)}")
@@ -210,8 +230,28 @@ def segment_tree_sample(tree: torch.Tensor, targets: torch.Tensor) -> torch.Tens
     indices. CUDA tensors go through the kernel, one launch whatever R is
     (counted in ``segment_tree_sample.launches``); CPU tensors through
     the plain version."""
-    if tree.device.type == "cpu":
-        return segment_tree_sample_plain(tree, targets)
+    return route.call("segment_tree", lambda: segment_tree_work(tree,
+                                                                targets),
+                      _launch_sample, segment_tree_sample_plain,
+                      _sample_shape_only, {}, tree, targets,
+                      differentiable=False)
+
+
+def segment_tree_work(tree: torch.Tensor, targets: torch.Tensor):
+    """(flops, bytes) of one call: per target the log2(P) nodes of its
+    path read, the target read and its index written; 3 float32
+    operations a level."""
+    n, depth = targets.numel(), (tree.shape[-1] // 2).bit_length() - 1
+    return n * depth * 3, n * depth * 4 + n * 4 + n * 4
+
+
+def _sample_shape_only(tree: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    return torch.empty(targets.shape, dtype=torch.int32, device=tree.device)
+
+
+def _launch_sample(tree: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The descent's launch, counted in ``segment_tree_sample.launches``."""
     two_p = tree.shape[-1]
     if tree.dim() not in (1, 2) or two_p < 2 or two_p & (two_p - 1):
         raise ValueError(f"tree must be (2P,) or (R, 2P) with P a power of "

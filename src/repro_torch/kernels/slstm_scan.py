@@ -15,7 +15,9 @@ PyTorch for the tests. A call that must record a gradient goes through
 autograd backward, from hs and the final state to wx, R, b and the
 incoming state (the reference has no vjp here and trains xLSTM through
 its XLA scan; the port has no such switch, so it takes the same rule as
-the other kernels).
+the other kernels). Fake tensors take a shape-only branch (the dry run
+never steps the recurrence) and DTensors run on their local shards,
+along batch (``route``).
 """
 
 from __future__ import annotations
@@ -26,12 +28,11 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
-from repro_torch.kernels.recompute import PlainRecompute, needs_grad
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import slstm_scan as slstm_scan_plain
 
 __all__ = ["slstm_scan", "slstm_scan_plain", "slstm_scan_cluster",
-           "cluster_plan", "SlstmPlan"]
+           "cluster_plan", "SlstmPlan", "slstm_scan_work"]
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -232,17 +233,45 @@ def slstm_scan(wx: torch.Tensor, R: torch.Tensor, b: torch.Tensor,
     """wx: (B, S, 4d) float32 or bfloat16; R: (4, H, Pd, Pd), b: (4d,) and
     the state's four (B, d) tensors float32; H = n_heads, d = H Pd. CUDA
     tensors go through the kernel (its launches are counted in
-    ``slstm_scan.launches``); CPU tensors through the plain version. On
-    the card a call that needs a gradient gets it from the plain version
+    ``slstm_scan.launches``); CPU tensors through the plain version; fake
+    tensors through the shape-only branch (``route``). On the card a call
+    that needs a gradient gets it from the plain version
     (``recompute``)."""
-    if wx.device.type == "cpu":
-        return slstm_scan_plain(wx, R, b, state, n_heads)
-    if needs_grad(wx, R, b, *state):
-        hs, *out = PlainRecompute.apply(
-            _flat(_launch), _flat(slstm_scan_plain), {"n_heads": n_heads},
-            wx, R, b, *state)
+    if route.is_sharded(wx, R, b, *state):
+        row, whole = ("b", None), (None, None, None, None)
+        hs, *out = route.sharded(
+            lambda wx, R, b, *st: _flat(slstm_scan)(wx, R, b, *st,
+                                                    n_heads=n_heads),
+            (("b", None, None), whole, (None,)) + (row,) * 4,
+            (("b", None, None),) + (row,) * 4, wx, R, b, *state)
         return hs, tuple(out)
-    return _launch(wx, R, b, state, n_heads)
+    hs, *out = route.call("slstm_scan",
+                          lambda: slstm_scan_work(wx, R, n_heads),
+                          _flat(_launch), _flat(slstm_scan_plain),
+                          _flat(_shape_only), {"n_heads": n_heads},
+                          wx, R, b, *state)
+    return hs, tuple(out)
+
+
+def slstm_scan_work(wx: torch.Tensor, R: torch.Tensor, n_heads: int):
+    """(flops, bytes) of one call: wx, R, b and the state read and hs and
+    the state written once; per row and step the recurrent product (2 x
+    4d x Pd) and ~30 float32 operations per unit for the gates."""
+    B, S, d4 = wx.shape
+    d = d4 // 4
+    Pd = d // n_heads
+    item = wx.element_size()
+    nbytes = (B * S * d4 * item + R.numel() * 4 + d4 * 4 + 8 * B * d * 4
+              + B * S * d * item)
+    return B * S * (2 * d4 * Pd + 30 * d), nbytes
+
+
+def _shape_only(wx, R, b, state, n_heads):
+    B, S, d4 = wx.shape
+    d = d4 // 4
+    return (torch.empty((B, S, d), dtype=wx.dtype, device=wx.device),
+            tuple(torch.empty((B, d), dtype=torch.float32, device=wx.device)
+                  for _ in range(4)))
 
 
 def _flat(scan: Callable) -> Callable:

@@ -16,7 +16,9 @@ sequential recurrence) in the kernel layout (B, H, S, P).
 PyTorch for the tests. A call that must record a gradient goes through
 ``recompute.PlainRecompute``: the kernel forward, the plain version's
 autograd backward (the reference's ``custom_vjp`` rule), y and the final
-state both differentiable.
+state both differentiable. Fake tensors take a shape-only branch (the
+dry run never steps the recurrence) and DTensors run on their local
+shards, along batch and heads (``route``).
 """
 
 from __future__ import annotations
@@ -26,12 +28,11 @@ from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.recompute import PlainRecompute, needs_grad
+from repro_torch.kernels import build, route
 from repro_torch.kernels.ref import ssm_scan as _plain
 
 __all__ = ["ssm_scan", "ssm_scan_plain", "ssm_scan_cluster", "chunk_length",
-           "ssd_plan", "kernel_plan", "SsdPlan"]
+           "ssd_plan", "kernel_plan", "SsdPlan", "ssm_scan_work"]
 
 # as csrc/ssm_scan.cu: the scalar body's tile limits and shared memory;
 # the cluster body's head size and state, bf16 row of its tiles, x tiles
@@ -295,19 +296,51 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B, S, H, P); dt: (B, S, H) float32; A: (H,) float32; Bm, Cm:
     (B, S, N) of x's type (float32 or bfloat16). CUDA tensors go through
     the kernel (its launches are counted in ``ssm_scan.launches``); CPU
-    tensors through the plain version. On the card a call that needs a
+    tensors through the plain version; fake tensors through the
+    shape-only branch (``route``). On the card a call that needs a
     gradient gets it from the plain version (``recompute``)."""
     chunk_length(x.shape[1], chunk)
-    if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, A, Bm, Cm)
-    if needs_grad(x, dt, A, Bm, Cm):
-        return PlainRecompute.apply(_launch, _plain_out, {"chunk": chunk},
-                                    x, dt, A, Bm, Cm)
-    return _launch(x, dt, A, Bm, Cm, chunk)
+    if route.is_sharded(x, dt, A, Bm, Cm):
+        return route.sharded(
+            lambda *a: ssm_scan(*a, chunk=chunk),
+            (("b", None, "h", None), ("b", None, "h"), ("h",),
+             ("b", None, None), ("b", None, None)),
+            (("b", None, "h", None), ("b", "h", None, None)),
+            x, dt, A, Bm, Cm)
+    return route.call("ssm_scan", lambda: ssm_scan_work(x, Bm, chunk),
+                      _launch, _plain_out, _shape_only, {"chunk": chunk},
+                      x, dt, A, Bm, Cm)
+
+
+def ssm_scan_work(x: torch.Tensor, Bm: torch.Tensor, chunk: int):
+    """(flops, bytes) of one call: x, Bm, Cm, dt and A read and y and the
+    state written once. Operations: the fewer of the chunked form's (C
+    B^T once per (b, chunk) over its L(L+1)/2 causal pairs, 2N each; per
+    (b, h, chunk) W x over those pairs, 2P each, C h_prev and the state
+    update, 2 L P N each) and the sequential recurrence's (5 P N per
+    token and head)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = chunk_length(S, chunk)
+    item = x.element_size()
+    nbytes = ((2 * B * S * H * P + 2 * B * S * N) * item + B * S * H * 4
+              + H * 4 + B * H * P * N * 4)
+    pairs = L * (L + 1) // 2
+    flops = min(B * (S // L) * pairs * 2 * N
+                + B * H * (S // L) * (pairs * 2 * P + 4 * L * P * N),
+                B * S * H * 5 * P * N)
+    return flops, nbytes
 
 
 def _plain_out(x, dt, A, Bm, Cm, chunk):
     return ssm_scan_plain(x, dt, A, Bm, Cm)
+
+
+def _shape_only(x, dt, A, Bm, Cm, chunk):
+    B, S, H, P = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((B, H, P, Bm.shape[-1]), dtype=torch.float32,
+                        device=x.device))
 
 
 def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -48,11 +48,21 @@ cycle. The optimizer is the spec's (AdamW by default);
 centered RMSProp, and ``--optimizer`` overrides the spec either way.
 ``--dryrun`` shrinks the run to a few seconds. ``--device cuda`` (the
 default) raises when no card is visible.
+
+Under ``torch.distributed.run`` a population's replicas split over the
+processes, one card each (NCCL; gloo with ``--device cpu``), where
+their count divides P (``core.population.replica_mesh``): each rank
+runs its P/D replicas, and rank 0 prints, writes the metrics, the trace
+and the checkpoints of the whole population:
+
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.rl_train --spec examples/specs/rainbow_fleet.json
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -60,6 +70,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.spec import (MODES, ExperimentSpec, SpecCompatError,
                                   check_resume_compat, load_run_spec,
@@ -216,10 +227,43 @@ def run_sweep_cli(args) -> int:
     return 0
 
 
+def _process_group(args) -> bool:
+    """Under ``torch.distributed.run`` (WORLD_SIZE > 1): join the job's
+    process group (NCCL on cards, one per rank; gloo on the CPU) and
+    return True; a population's replicas then split over the ranks
+    (``PopulationTrainer``). Otherwise False."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    if torch.device(args.device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def _first_rank() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.sweep:
         return run_sweep_cli(args)
+    joined = _process_group(args)
+    try:
+        if _first_rank():
+            return _main(args)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _main(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
     try:
         spec = resolve_spec(args)
     except (OSError, ValueError) as e:
@@ -238,6 +282,11 @@ def main(argv=None) -> int:
     # throughput lines read. Tracing reads the host's clock and waits for
     # the card; it changes no tensor, so a traced run is bitwise equal
     # to an untraced one (tests/test_torch_telemetry.py).
+    if not _first_rank():
+        # one trace, one metrics file, one set of checkpoints: rank 0's
+        args.trace = None
+        spec = dataclasses.replace(spec, metrics=dataclasses.replace(
+            spec.metrics, jsonl=None))
     tracer = make_tracer(args.trace, meta={
         "kind": "rl_train", "env": spec.env, "mode": spec.mode,
         "variant": spec.variant.name, "seeds": spec.seeds,
@@ -288,7 +337,7 @@ def _train(args, spec: ExperimentSpec, tracer) -> int:
             print(f"cannot resume {ckpt_dir}: {e}", file=sys.stderr,
                   flush=True)
             return 2
-    if ckpt_dir:
+    if ckpt_dir and _first_rank():
         try:
             save_run_spec(ckpt_dir, spec)
         except SpecCompatError as e:
@@ -304,6 +353,8 @@ def _train(args, spec: ExperimentSpec, tracer) -> int:
         with tracer.span("init", phase="restore"):
             step, carry, skipped = restore_latest(
                 ckpt_dir, trainer.init_template(), device=trainer.device)
+            if carry is not None:
+                carry = trainer.own(carry)
         for s in skipped:
             print(f"WARNING: skipped unrestorable checkpoint {s}", flush=True)
         if carry is not None:
@@ -329,10 +380,10 @@ def _train(args, spec: ExperimentSpec, tracer) -> int:
             trim_metrics_jsonl(spec.metrics.jsonl, start_cycle)
         metrics_f = open(spec.metrics.jsonl, "a", buffering=1)
 
-    def emit(i, m, evals):
+    def emit(i, m, evals, steps):
         # one device-to-host copy per cycle (float32 and int32 values
         # are exact in float64)
-        cols = [m["loss"], m["reward"], m["episodes"], trainer.steps(carry)]
+        cols = [m["loss"], m["reward"], m["episodes"], steps]
         if evals is not None:
             cols.append(evals)
         host = torch.stack([c.to(torch.float64) for c in cols]).cpu().tolist()
@@ -357,12 +408,22 @@ def _train(args, spec: ExperimentSpec, tracer) -> int:
                         tracer.fence(m)
                 tracer.count("cycles", 1)
                 tracer.count("env_steps", P * sched.cycle_steps)
+                # on every rank: a population split over processes
+                # gathers its replicas' steps (its own span there: what
+                # a gather costs beside the cycle)
+                if getattr(trainer, "mesh", None) is None:
+                    steps_p = trainer.steps(carry)
+                else:
+                    with tracer.span("gather", index=i + 1):
+                        steps_p = trainer.steps(carry)
+                        if tracer.enabled:
+                            tracer.fence(steps_p)
                 evals = None
                 if (i + 1) % sched.eval_every == 0 or i == sched.cycles - 1:
                     with tracer.span("eval", index=i + 1):
                         evals = trainer.eval(carry, trainer.eval_key(i))
                         sync()
-                    steps = int(trainer.steps(carry)[0])
+                    steps = int(steps_p[0])
                     sps = tracer.counters["env_steps"] / max(
                         time.perf_counter() - t0, 1e-9)
                     print(f"[{tag}] cycle {i + 1:4d} steps {steps:7d} x{P} "
@@ -374,12 +435,13 @@ def _train(args, spec: ExperimentSpec, tracer) -> int:
                           "env-steps/s", flush=True)
                 if metrics_f is not None:
                     with tracer.span("metrics", index=i + 1):
-                        emit(i, m, evals)
+                        emit(i, m, evals, steps_p)
                 boundary = ((i + 1) % spec.checkpoint.every == 0
                             or i == sched.cycles - 1)
                 if ckpt_dir and boundary:
                     with tracer.span("checkpoint", index=i + 1):
-                        save_checkpoint(ckpt_dir, i + 1, carry)
+                        save_checkpoint(ckpt_dir, i + 1,
+                                        trainer.whole(carry))
                 if boundary:
                     # per-interval throughput from the tracer's counters:
                     # long runs stay observable without a trace file

@@ -9,9 +9,9 @@
 Parameters, optimizer state and caches are explicit arguments, as in the
 reference. The train step is a pure function: it returns new parameter
 and optimizer trees and writes nothing in place; the serve step updates
-the cache in place and returns it. (``abstract_train_state`` and
-``abstract_cache`` are the reference's ``eval_shape`` tooling of the
-dry-run, ROADMAP.md queue 1 item 15.)
+the cache in place and returns it. ``abstract_train_state`` and
+``abstract_cache`` give the dry run's stand-ins on the ``meta`` device
+(the reference's ``eval_shape``): no memory.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import apply_updates, value_and_grad
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding.rules import whole_along
 
 
 def make_optimizer(tc: TrainConfig, total_steps: int = 10_000):
@@ -71,6 +72,21 @@ def make_serve_step(cfg: ModelConfig, ec: ExecConfig, ring: bool = False):
     def serve_step(params, cache, tokens):
         logits, cache = T.decode_step(cfg, ec, params, cache, tokens,
                                       ring=ring)
-        nxt = torch.argmax(logits[:, :, : cfg.vocab], dim=-1)
+        # on a sharded vocabulary the pick needs the whole row
+        logits = whole_along(logits[:, :, : cfg.vocab], -1)
+        nxt = torch.argmax(logits, dim=-1)
         return nxt.to(torch.int32), cache
     return serve_step
+
+
+def abstract_train_state(cfg: ModelConfig, ec: ExecConfig, tc: TrainConfig):
+    """(params, opt_state) as ``meta`` tensors: the reference's float32
+    parameters and the AdamW state over them."""
+    params = T.abstract_params(cfg, ec)
+    return params, make_optimizer(tc).init(params)
+
+
+def abstract_cache(cfg: ModelConfig, ec: ExecConfig, batch: int,
+                   cache_len: int, ring: bool):
+    """The decode cache as ``meta`` tensors."""
+    return T.init_cache(cfg, ec, batch, cache_len, ring, device="meta")

@@ -12,8 +12,10 @@ d_model)), as the reference draws it. Reduced configs compute in
 float32, full-size ones in bfloat16. The reference's ``--use-pallas``
 and ``--kernel-backend`` are not taken: the port has no backend switch
 (a CUDA tensor runs the kernels, with their plain-recompute backward, a
-CPU tensor the plain versions). Nor is its mesh: one process trains on
-one device (ROADMAP.md queue 1 item 15). ``--device cuda`` (the
+CPU tensor the plain versions). One process trains on one device: the
+reference's launcher builds a host mesh but places nothing on it (its
+parameters and batches stay where they are made), so there is nothing
+to shard here; ``launch/dryrun.py`` places a step on a mesh. ``--device cuda`` (the
 default) raises when no card is visible. ``--ckpt-dir`` writes
 ``{"params": ...}`` in the npz layout both packages read.
 """

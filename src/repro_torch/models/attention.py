@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, route
 
 
 def repeat_kv(kv: torch.Tensor, n_heads: int, head_axis: int) -> torch.Tensor:
@@ -94,10 +94,48 @@ def cache_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
     element)."""
     if slot.numel() != 1:
         raise ValueError(f"one cache slot expected, got {tuple(slot.shape)}")
+    if route.is_sharded(k_cache, v_cache, k_new, v_new, slot):
+        return _sharded_cache_write(k_cache, v_cache, k_new, v_new, slot)
     with _one_writer_per_element():
         k_cache.index_copy_(2, slot, k_new.transpose(1, 2).to(k_cache.dtype))
         v_cache.index_copy_(2, slot, v_new.transpose(1, 2).to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def _sharded_cache_write(k_cache, v_cache, k_new, v_new, slot):
+    """``cache_write`` on DTensor caches (the dry run): each rank writes
+    its shard in place. The new K/V take the caches' batch and head
+    sharding; where the caches' L dim is sharded (``kv_seq_shard``) a
+    rank writes the slot only if its shard holds it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding.rules import local_offset
+    mesh = k_cache.device_mesh
+    cpl = list(k_cache.placements)
+    npl = [Shard(0) if p == Shard(0) else Shard(2) if p == Shard(1)
+           else Replicate() for p in cpl]
+    whole = [Replicate()] * mesh.ndim
+    local_len, offset = local_offset(k_cache.shape, mesh, cpl)
+    split_l = local_len[2] != k_cache.shape[2]
+
+    def write(kc, vc, kn, vn, s):
+        if split_l:
+            i = s - offset[2]
+            held = (i >= 0) & (i < kc.shape[2])
+            i = i.clamp(0, kc.shape[2] - 1)
+            kn = torch.where(held, kn.transpose(1, 2).to(kc.dtype),
+                             kc.index_select(2, i)).transpose(1, 2)
+            vn = torch.where(held, vn.transpose(1, 2).to(vc.dtype),
+                             vc.index_select(2, i)).transpose(1, 2)
+            s = i
+        return cache_write(kc, vc, kn, vn, s)
+
+    if not isinstance(slot, DTensor):
+        slot = DTensor.from_local(slot, mesh, whole, run_check=False)
+    return local_map(write, out_placements=(cpl, cpl),
+                     in_placements=(cpl, cpl, npl, npl, whole),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        k_cache, v_cache, k_new, v_new, slot)
 
 
 def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -15,9 +15,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
 
 from repro_torch import rng
 from repro_torch.kernels import ops
+from repro_torch.roofline import cost
 
 
 def round_up(x: int, m: int) -> int:
@@ -30,13 +32,25 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return ops.rmsnorm(x, gamma, eps)
 
 
-@functools.lru_cache(maxsize=16)
 def _rope_freqs(head_dim: int, theta: float, device: torch.device):
     """The (head_dim//2,) float32 frequencies, made in numpy as the
     reference makes them and copied to ``device`` once: a host-to-device
-    copy on every decode step would make the host wait for the card."""
+    copy on every decode step would make the host wait for the card.
+    Under ``FakeTensorMode`` (the dry run) they are made anew and not
+    kept. Either way a cost counter does not see the copy, so a step
+    counts the same on a card and on fake tensors."""
+    if detect_fake_mode() is not None:
+        return _make_rope_freqs(head_dim, theta, device)
+    return _kept_rope_freqs(head_dim, theta, device)
+
+
+def _make_rope_freqs(head_dim: int, theta: float, device: torch.device):
     freqs = theta ** (-np.arange(0, head_dim, 2, dtype=np.float32) / head_dim)
-    return torch.from_numpy(np.asarray(freqs, dtype=np.float32)).to(device)
+    with cost.quiet():
+        return torch.from_numpy(np.asarray(freqs, dtype=np.float32)).to(device)
+
+
+_kept_rope_freqs = functools.lru_cache(maxsize=16)(_make_rope_freqs)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,

@@ -12,9 +12,19 @@ Dispatch (``ExecConfig.moe_impl``):
   GShard semantics). ``cap`` counts the logical experts, the buffers the
   padded ones (qwen's 60 -> 64: the 4 pad experts get buffers and never a
   token).
-* ``expert_parallel``: the reference's ``shard_map`` over a mesh's
-  ``model`` axis. The port has no mesh, so on one card it runs the
-  scatter path, as the reference does without a ``model`` axis.
+* ``expert_parallel``: the reference's ``shard_map`` over the ``model``
+  axis of the ambient mesh (``compat.use_mesh``), through ``local_map``:
+  each rank holds E/model of the padded expert stacks, routes every
+  token of its batch shard, keeps the assignments to its own experts
+  (the rest go to a drop bucket, whose rows are zero and weight is 0),
+  runs the scatter path's dispatch, experts and combine on them, and
+  one all-reduce of y in the compute dtype over ``model`` sums the
+  ranks' parts; ``aux`` is averaged over the batch axes. Taken exactly
+  where the reference's ``ep_ok`` holds (a mesh with a ``model`` axis
+  that divides the padded expert count), else the scatter path. The
+  router and x are the same on every ``model`` rank, so their gradients
+  are the ranks' partial sums, added once; the auxiliary loss carries a
+  gradient from model rank 0 only.
 * ``dense`` (the oracle): every expert computes every token; no drops.
 
 The router reads its weight in float32 (``init_params`` keeps the leaf
@@ -37,6 +47,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import current_mesh
 from repro_torch.config import ExecConfig, ModelConfig, MoEConfig
 from repro_torch.models import params as P
 
@@ -137,14 +148,23 @@ def _experts_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
-                 top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
+                 top_e: torch.Tensor, m: MoEConfig,
+                 buckets: int = 0) -> torch.Tensor:
     """x: (B, S, d) -> (B S, d): dispatch into the capacity buffers, the
-    experts, and the weighted combine."""
+    experts, and the weighted combine. ``p`` holds E expert stacks; the
+    ids run over ``buckets`` (E by default), and an id past E (the
+    expert-parallel drop bucket) adds nothing."""
     B, S, d = x.shape
     k = m.top_k
-    E = padded_experts(m)
+    E = p["w_gate"].shape[0]
+    buckets = buckets or E
     cap = capacity(m, S)
-    src, dst = _routes(top_e.reshape(B, S, k), E, cap)
+    src, dst = _routes(top_e.reshape(B, S, k), buckets, cap)
+    if buckets > E:
+        # the drop bucket's slots are never filled; its assignments read
+        # the zero row, as a dropped one does
+        src = src[:, : E * cap]
+        dst = torch.where(dst < E * cap, dst, E * cap)
     grad = torch.is_grad_enabled() and (x.requires_grad or any(
         p[n].requires_grad for n in ("w_gate", "w_up", "w_down")))
     buf = _pick(x, src, grad)                               # (B, E cap, d)
@@ -175,19 +195,141 @@ def _dense_moe(p, xt: torch.Tensor, top_w: torch.Tensor,
     return torch.einsum("te,etd->td", w_e, y_all)
 
 
+def expert_parallel_local(x: torch.Tensor, router_w: torch.Tensor,
+                          experts: Dict[str, torch.Tensor], rank: int,
+                          m: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``model`` rank's part (the reference's ``local_fn`` before its
+    psum): x (B, S, d) of its batch shard, the router, and ``experts``,
+    the rank's E_loc stacks (``w_gate``, ``w_up``, ``w_down``) of global
+    ids rank E_loc ... Returns (its part of y (B S, d) in x's type, aux
+    float32): the sum of the ranks' parts is the scatter path's y."""
+    B, S, d = x.shape
+    e_loc = experts["w_gate"].shape[0]
+    top_w, top_e, aux = _router(x.reshape(B * S, d).to(torch.float32),
+                                router_w, m)
+    e_local = top_e - rank * e_loc
+    mine = (e_local >= 0) & (e_local < e_loc)
+    te = torch.where(mine, e_local, e_loc)              # e_loc: drop bucket
+    tw = torch.where(mine, top_w, 0.0)
+    y = _scatter_moe(experts, x, tw, te, m, buckets=e_loc + 1)
+    return y.to(x.dtype), aux
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (sum) over a process group in the forward; the backward
+    passes the cotangent through: the output is the same on every rank,
+    so each rank's part has derivative 1, and the inputs' gradients are
+    the ranks' partial sums, added where they are reduced."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """All-reduce (mean) over a process group of n ranks; the backward
+    gives each rank's part 1/n of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group, n: int) -> torch.Tensor:
+        from torch.distributed import _functional_collectives as funcol
+        ctx.n = n
+        return funcol.wait_tensor(funcol.all_reduce(t, "avg", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _ep_ok(mesh, m: MoEConfig) -> bool:
+    """The reference's ``ep_ok``: a mesh with a ``model`` axis that
+    divides the padded expert count."""
+    return (mesh is not None and "model" in (mesh.mesh_dim_names or ())
+            and padded_experts(m) % mesh["model"].size() == 0)
+
+
+def _expert_parallel_moe(p, x: torch.Tensor, m: MoEConfig, mesh):
+    """``expert_parallel_local`` on every rank through ``local_map``: x
+    (B, S, d) sharded over the batch axes present (pod, data) and whole
+    on ``model``, the expert stacks sharded over ``model``, the router
+    whole. Plain tensors count as whole on every rank (each process
+    holds the full batch and parameters); y comes back as x came in."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    names = list(mesh.mesh_dim_names)
+    B, S, d = x.shape
+    bdims = [i for i, a in enumerate(names)
+             if a in ("pod", "data") and mesh.size(i) > 1]
+    ways = 1
+    for i in bdims:
+        ways *= mesh.size(i)
+    if B % ways:
+        bdims, ways = [], 1
+    model = names.index("model")
+    plain = not isinstance(x, DTensor)
+
+    def pl(batch, on_model):
+        # a batch axis that does not shard x holds the same work on each
+        # of its ranks: whole there
+        return [batch if i in bdims else on_model if i == model
+                else Replicate() for i in range(mesh.ndim)]
+
+    x_pl = pl(Shard(0), Replicate())
+    w_pl = pl(Replicate(), Shard(0))
+    whole = [Replicate()] * mesh.ndim
+    ep_group = (mesh, model)
+    b_groups = [(mesh, i) for i in bdims]
+
+    def local_fn(xr, router_w, wg, wu, wd):
+        rank = mesh.get_local_rank("model")
+        y, aux = expert_parallel_local(
+            xr, router_w, {"w_gate": wg, "w_up": wu, "w_down": wd}, rank, m)
+        y = _SumOverRanks.apply(y, ep_group)
+        for i, group in zip(bdims, b_groups):
+            aux = _MeanOverRanks.apply(aux, group, mesh.size(i))
+        if rank != 0:
+            aux = aux.detach()          # the gradient through aux, once
+        return y.reshape(xr.shape), aux
+
+    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    args = [DTensor.from_local(a, mesh, whole, run_check=False)
+            if not isinstance(a, DTensor) else a for a in args]
+    y, aux = local_map(
+        local_fn, out_placements=(x_pl, whole),
+        in_placements=(x_pl, whole, w_pl, w_pl, w_pl),
+        in_grad_placements=(pl(Shard(0), Partial()), pl(Partial(), Partial()),
+                            pl(Partial(), Shard(0)), pl(Partial(), Shard(0)),
+                            pl(Partial(), Shard(0))),
+        device_mesh=mesh, redistribute_inputs=True)(*args)
+    if plain:
+        y, aux = y.to_local(), aux.to_local()
+    return y, aux
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
             ec: ExecConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar). The
-    ``scatter`` path unless ``ec.moe_impl`` is ``dense``;
-    ``expert_parallel`` runs the scatter path (the module docstring)."""
+    ``scatter`` path, ``dense`` where ``ec.moe_impl`` says so, and
+    ``expert_parallel`` where it says so and the ambient mesh allows
+    (the module docstring)."""
     m = cfg.moe
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
-    if ec.moe_impl == "dense":
-        y = _dense_moe(p, xt, top_w, top_e, m)
+    mesh = current_mesh() if ec.moe_impl == "expert_parallel" else None
+    if _ep_ok(mesh, m):
+        y, aux = _expert_parallel_moe(p, x, m, mesh)
+        y = y.reshape(B * S, d)
     else:
-        y = _scatter_moe(p, x, top_w, top_e, m)
+        top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
+        if ec.moe_impl == "dense":
+            y = _dense_moe(p, xt, top_w, top_e, m)
+        else:
+            y = _scatter_moe(p, x, top_w, top_e, m)
     if m.n_shared_experts:
         dt = xt.dtype
         g = torch.matmul(xt, p["shared_gate"].to(dt))

@@ -1,6 +1,8 @@
 """Parameter specs: a model declares its parameters as a nested dict of
-:class:`Leaf` (shape, logical axes, initializer) and ``init_tree``
-materializes them. The port of ``repro.models.params``; the draws go
+:class:`Leaf` (shape, logical axes, initializer). ``init_tree``
+materializes them, ``abstract_tree`` gives tensors on the ``meta``
+device (the dry run's stand-ins: no memory) and ``partition_tree`` each
+leaf's sharding spec through logical-axis rules. The port of ``repro.models.params``; the draws go
 through :mod:`repro_torch.rng`, so an init matches the reference's to
 float rounding (``normal`` is exact to a few ulps).
 
@@ -14,7 +16,7 @@ chunked draw equals the whole one bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -120,3 +122,30 @@ def drawn_in(spec: Tree, dtype, keep: Tuple[str, ...] = ()) -> Tree:
     return _build(spec, lambda path, leaf: dataclasses.replace(
         leaf, dtype=dtype) if leaf.init in ("normal", "embed")
         and path[-1] not in keep else leaf)
+
+
+def abstract_tree(spec: Tree) -> Tree:
+    """The spec as tensors on the ``meta`` device in each leaf's dtype."""
+    return _build(spec, lambda _, leaf: torch.empty(
+        leaf.shape, dtype=leaf.dtype, device="meta"))
+
+
+def partition_tree(spec: Tree, rules: Dict[str, Optional[str]]) -> Tree:
+    """Map each leaf's logical axes through ``rules`` to a spec: a tuple
+    with, per dim, the mesh-axis name it shards over or None (the
+    reference's ``PartitionSpec`` in plain Python). A logical axis absent
+    from ``rules`` is replicated; ``rules`` holds divisibility already
+    (``sharding/rules.py``)."""
+    return _build(spec, lambda _, leaf: tuple(
+        rules.get(ax) if ax is not None else None for ax in leaf.axes))
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Bytes of every tensor leaf of a nested dict, list or tuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0

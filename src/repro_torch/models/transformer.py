@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
                                 ExecConfig, ModelConfig)
+from repro_torch.kernels import route
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import params as P
@@ -193,6 +194,12 @@ def init_params(cfg: ModelConfig, key: torch.Tensor,
     spec = P.drawn_in(model_param_spec(cfg, ec), param_dtype or ec.cdtype,
                       keep=F32_LEAVES)
     return P.init_tree(spec, key)
+
+
+def abstract_params(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
+    """The reference's parameter tree as ``meta`` tensors (its float32
+    leaves): the dry run's parameters, no memory."""
+    return P.abstract_tree(model_param_spec(cfg, ec))
 
 
 # ---------------------------------------------------------------------------
@@ -367,12 +374,50 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """Rows ``tokens`` of the embedding ``table`` in ``dtype``: a gather,
     or, where the table records a gradient, a one-hot product (see the
-    module docstring)."""
+    module docstring). On DTensors each rank looks its tokens up in its
+    shard of the vocabulary (``_sharded_embed``)."""
+    if route.is_sharded(table, tokens):
+        return _sharded_embed(table, tokens, dtype)
     rows = table.to(dtype)
     if not (torch.is_grad_enabled() and table.requires_grad):
         return rows[tokens.long()]
     ids = torch.arange(rows.shape[0], device=tokens.device)
     return torch.matmul((tokens.long()[..., None] == ids).to(dtype), rows)
+
+
+def _sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``embed_tokens`` on DTensors (the dry run), vocabulary-parallel:
+    the table keeps its vocabulary sharding (its embed dim is gathered),
+    the tokens their batch sharding; each rank gives the rows of the
+    tokens in its vocabulary shard and zeros for the rest, and the
+    output is their partial sum over the vocabulary's mesh dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.sharding.rules import local_offset
+    mesh = (table if isinstance(table, DTensor) else tokens).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    if not isinstance(table, DTensor):
+        table = DTensor.from_local(table, mesh, whole, run_check=False)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, whole, run_check=False)
+    tpl = [p if p == Shard(0) else Replicate() for p in table.placements]
+    kpl = [p if p == Shard(0) and t != Shard(0) else Replicate()
+           for p, t in zip(tokens.placements, tpl)]
+    opl = [Partial() if t == Shard(0) else p for p, t in zip(kpl, tpl)]
+    _, offset = local_offset(table.shape, mesh, tpl)
+
+    def lookup(tab, tok):
+        idx = tok.long() - offset[0]
+        if torch.is_grad_enabled() and tab.requires_grad:
+            # an id outside the shard matches no column: a zero row
+            return embed_tokens(tab, idx, dtype)
+        held = ((idx >= 0) & (idx < tab.shape[0]))[..., None]
+        return tab.to(dtype)[idx.clamp(0, tab.shape[0] - 1)] * held.to(dtype)
+
+    return local_map(lookup, out_placements=opl, in_placements=(tpl, kpl),
+                     in_grad_placements=(tpl, kpl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def _superblock(x: torch.Tensor, aux, lp: Tree, shared: Optional[Tree], rope,
@@ -576,7 +621,10 @@ def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
     on the device."""
     pos = cache["pos"]
     dev = pos.device
-    x = params["embed"].to(ec.cdtype)[tokens.long()]
+    if route.is_sharded(params["embed"], tokens):
+        x = _sharded_embed(params["embed"], tokens, ec.cdtype)
+    else:
+        x = params["embed"].to(ec.cdtype)[tokens.long()]
     if cfg.pos_kind == "learned":
         row = torch.remainder(pos.to(torch.int64), cfg.learned_pos_len)
         x = x + params["pos_embed"].index_select(0, row.reshape(1)).to(

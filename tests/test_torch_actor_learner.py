@@ -12,6 +12,7 @@ tolerance, so that the equality means something.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -105,12 +106,24 @@ def test_synthetic_reward_matches_reference():
 # The reference's actor, replayed to read its sampling margins
 # ---------------------------------------------------------------------------
 
-def _margins(jc, al, params, step):
+@pytest.fixture(scope="module")
+def jdecode():
+    """The reference's decode step jitted once per config in this module
+    (each cycle's margins replay it)."""
+    built = {}
+
+    def get(jc):
+        if jc not in built:
+            built[jc] = jax.jit(functools.partial(JT.decode_step, jc, JEC))
+        return built[jc]
+    return get
+
+
+def _margins(dec, jc, al, params, step):
     """The reference actor's smallest top-2 margin of log(probs + 1e-9)
-    + gumbel over the sampled tokens of cycle ``step`` from ``params``,
-    and its sequences."""
+    + gumbel over the sampled tokens of cycle ``step`` from ``params``
+    (``dec``: its jitted decode step), and its sequences."""
     W, L = al.n_streams, al.prompt_len + al.gen_len
-    dec = jax.jit(lambda p, c, t: JT.decode_step(jc, JEC, p, c, t))
     key = jax.random.fold_in(jax.random.PRNGKey(3), step)
     kp, kg, _ = jax.random.split(key, 3)
     prompts = jax.random.randint(kp, (W, al.prompt_len), 0, jc.vocab)
@@ -138,7 +151,7 @@ def _margins(jc, al, params, step):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "xlstm-125m"])
-def test_fused_actor_learner_matches_reference(arch):
+def test_fused_actor_learner_matches_reference(arch, jdecode):
     jc, tc_ = jreduced(arch), reduced_config(arch)
     jal, al = JALConfig(**SMALL), ALConfig(**SMALL)
     jinit, jcycle = jmake(jc, JEC, jal)
@@ -154,7 +167,7 @@ def test_fused_actor_learner_matches_reference(arch):
                                    atol=1e-7)
     jcycle = jax.jit(jcycle)
     for c in range(3):
-        margin, want_seqs = _margins(jc, jal, jcarry.params, c)
+        margin, want_seqs = _margins(jdecode(jc), jc, jal, jcarry.params, c)
         assert margin > MARGIN, (c, margin)
         jcarry, jm = jcycle(jcarry)
         carry, m = cycle(carry)
@@ -196,7 +209,7 @@ def test_actor_uses_target_params_only():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("per_dist", [False, True])
-def test_disaggregated_matches_reference(per_dist):
+def test_disaggregated_matches_reference(per_dist, jdecode):
     """3 cycles on the CPU against the reference with one CPU device for
     both device sets; with ``prioritized`` and ``distributional_adv`` off
     and on (the segment-tree and C51 projection plain versions)."""
@@ -211,7 +224,7 @@ def test_disaggregated_matches_reference(per_dist):
         (jd.params, jd.opt_state, jd.seqs, jd.advs)), jd.cursor, jd.size,
         jd.step)
     for c in range(3):
-        margin, want_seqs = _margins(jc, jal, jd.params, c)
+        margin, want_seqs = _margins(jdecode(jc), jc, jal, jd.params, c)
         assert margin > MARGIN, (c, margin)
         jm, m = jd.cycle(), d.cycle()
         assert (d.cursor, d.size, d.step) == (jd.cursor, jd.size, jd.step)

@@ -82,7 +82,7 @@ def _cotangents(outs, seed):
 def test_function_gradients_bitwise_plain_autograd(name):
     plain, kwargs, arrays, _ = CASES[name]
     xs = [torch.from_numpy(a).requires_grad_() for a in arrays]
-    outs = PlainRecompute.apply(plain, plain, kwargs, *xs)
+    outs = PlainRecompute.apply(None, plain, plain, kwargs, *xs)
     want_outs = _tuple(plain(*xs, **kwargs))
     assert len(outs) == len(want_outs)
     cots = _cotangents(want_outs, 5)
@@ -106,7 +106,7 @@ def test_function_takes_only_some_inputs_and_outputs(name):
     if not any(x.requires_grad for x in xs):
         xs[0].requires_grad_()
     wanted = [x for x in xs if x.requires_grad]
-    outs = PlainRecompute.apply(plain, plain, kwargs, *xs)
+    outs = PlainRecompute.apply(None, plain, plain, kwargs, *xs)
     (cot,) = _cotangents(outs[:1], 6)
     got = torch.autograd.grad(outs[0], wanted, cot)
     want = torch.autograd.grad(_tuple(plain(*xs, **kwargs))[0], wanted, cot)

@@ -18,7 +18,7 @@ rtol = 1e-4 and an atol of 1e-4 times its largest magnitude.
 """
 
 import dataclasses
-import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -99,18 +99,46 @@ def _x(seed, *shape):
     return jnp.asarray(a), torch.from_numpy(a)
 
 
+@pytest.fixture(scope="module")
+def jref():
+    """The reference's functions, each jitted once in this module (its
+    eager calls compile every primitive on its own), and its key-0
+    parameters drawn once per arch (eagerly, as before: a jitted draw
+    may differ in the last bits)."""
+    built = {}
+
+    def jit(fn, *static):
+        if (fn, static) not in built:
+            built[fn, static] = jax.jit(fn, static_argnames=static)
+        return built[fn, static]
+
+    def params(jc):
+        if ("params", jc) not in built:
+            built["params", jc] = JT.init_params(jc, jax.random.PRNGKey(0),
+                                                 JEC)
+        return built["params", jc]
+
+    def decode(jc, ring):
+        step = jit(JT.decode_step, "cfg", "ec", "ring")
+        return lambda p, c, t: step(cfg=jc, ec=JEC, params=p, cache=c,
+                                    tokens=t, ring=ring)
+
+    return types.SimpleNamespace(jit=jit, params=params, decode=decode)
+
+
 @pytest.mark.parametrize("S", [32, 12])        # two chunks of 16; S < chunk
-def test_mamba2_forward_matches_ssd_chunked(S):
+def test_mamba2_forward_matches_ssd_chunked(S, jref):
     jc, tc = _configs("zamba2-2.7b")
     jp, tp = _block_params(JSSM.mamba2_param_spec(jc), 1)
     jx, tx = _x(2, 2, S, jc.d_model)
-    jy, jh = JSSM.mamba2_forward(jp, jx, jc, JEC)
+    jy, jh = jref.jit(JSSM.mamba2_forward, "cfg", "ec")(jp, jx, cfg=jc,
+                                                      ec=JEC)
     ty, th = SSM.mamba2_forward(tp, tx, tc)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL)
 
 
-def test_mamba2_decode_step_matches_reference():
+def test_mamba2_decode_step_matches_reference(jref):
     jc, tc = _configs("zamba2-2.7b")
     jp, tp = _block_params(JSSM.mamba2_param_spec(jc), 3)
     d_inner, H, P, N = SSM.ssm_dims(tc)
@@ -119,8 +147,8 @@ def test_mamba2_decode_step_matches_reference():
              "conv": r.standard_normal((2, tc.ssm.conv_width - 1,
                                         d_inner + 2 * N)).astype(np.float32)}
     jx, tx = _x(5, 2, 1, jc.d_model)
-    jy, jcache = JSSM.mamba2_decode_step(jp, jx, jax.tree.map(jnp.asarray,
-                                                               cache), jc, JEC)
+    jy, jcache = jref.jit(JSSM.mamba2_decode_step, "cfg", "ec")(
+        jp, jx, jax.tree.map(jnp.asarray, cache), cfg=jc, ec=JEC)
     tcache = tree_from_jax(cache)
     ty, new = SSM.mamba2_decode_step(tp, tx, tcache, tc)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
@@ -143,13 +171,13 @@ def _mlstm_state(seed, tc, B):
     (20, 8, True),      # S no multiple of the chunk: the step recurrence
     (16, 8, False)])    # the step recurrence, asked for
 @pytest.mark.parametrize("warm", [False, True])
-def test_mlstm_forward_matches_reference(S, chunk, chunked, warm):
+def test_mlstm_forward_matches_reference(S, chunk, chunked, warm, jref):
     jc, tc = _configs("xlstm-125m", chunk=chunk)
     jp, tp = _block_params(JXL.mlstm_param_spec(jc), 6)
     jx, tx = _x(7, 2, S, jc.d_model)
     st = _mlstm_state(8, tc, 2) if warm else None
-    jy, jst = JXL.mlstm_forward(
-        jp, jx, jc, JEC, state=None if st is None else
+    jy, jst = jref.jit(JXL.mlstm_forward, "cfg", "ec", "chunked")(
+        jp, jx, cfg=jc, ec=JEC, state=None if st is None else
         tuple(map(jnp.asarray, st)), chunked=chunked)
     ty, tst = XL.mlstm_forward(tp, tx, tc, state=None if st is None else
                                tree_from_jax(st), chunked=chunked)
@@ -157,7 +185,7 @@ def test_mlstm_forward_matches_reference(S, chunk, chunked, warm):
     _assert_tree(tst, jax.device_get(jst))
 
 
-def test_mlstm_decode_step_matches_reference():
+def test_mlstm_decode_step_matches_reference(jref):
     jc, tc = _configs("xlstm-125m")
     jp, tp = _block_params(JXL.mlstm_param_spec(jc), 9)
     d_inner, _, _ = XL.mlstm_dims(tc)
@@ -165,8 +193,8 @@ def test_mlstm_decode_step_matches_reference():
         (2, tc.xlstm.conv_width - 1, d_inner)).astype(np.float32)
     cache = {"state": _mlstm_state(11, tc, 2), "conv": conv}
     jx, tx = _x(12, 2, 1, jc.d_model)
-    jy, jcache = JXL.mlstm_decode_step(jp, jx, jax.tree.map(jnp.asarray,
-                                                             cache), jc, JEC)
+    jy, jcache = jref.jit(JXL.mlstm_decode_step, "cfg", "ec")(
+        jp, jx, jax.tree.map(jnp.asarray, cache), cfg=jc, ec=JEC)
     ty, new = XL.mlstm_decode_step(tp, tx, tree_from_jax(cache), tc)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     _assert_tree(new, jax.device_get(jcache))
@@ -180,26 +208,27 @@ def _slstm_state(seed, tc, B):
 
 @pytest.mark.parametrize("S", [32, 21])         # 21: no multiple of 16
 @pytest.mark.parametrize("warm", [False, True])
-def test_slstm_forward_matches_reference(S, warm):
+def test_slstm_forward_matches_reference(S, warm, jref):
     jc, tc = _configs("xlstm-125m")
     jp, tp = _block_params(JXL.slstm_param_spec(jc), 13)
     jx, tx = _x(14, 2, S, jc.d_model)
     st = _slstm_state(15, tc, 2) if warm else None
-    jy, jst = JXL.slstm_forward(jp, jx, jc, JEC, state=None if st is None
-                                else tuple(map(jnp.asarray, st)))
+    jy, jst = jref.jit(JXL.slstm_forward, "cfg", "ec")(
+        jp, jx, cfg=jc, ec=JEC, state=None if st is None
+        else tuple(map(jnp.asarray, st)))
     ty, tst = XL.slstm_forward(tp, tx, tc, state=None if st is None else
                                tree_from_jax(st))
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     _assert_tree(tst, jax.device_get(jst))
 
 
-def test_slstm_decode_step_matches_reference():
+def test_slstm_decode_step_matches_reference(jref):
     jc, tc = _configs("xlstm-125m")
     jp, tp = _block_params(JXL.slstm_param_spec(jc), 16)
     st = _slstm_state(17, tc, 2)
     jx, tx = _x(18, 2, 1, jc.d_model)
-    jy, jst = JXL.slstm_decode_step(jp, jx, tuple(map(jnp.asarray, st)), jc,
-                                    JEC)
+    jy, jst = jref.jit(JXL.slstm_decode_step, "cfg", "ec")(
+        jp, jx, tuple(map(jnp.asarray, st)), cfg=jc, ec=JEC)
     ty, tst = XL.slstm_decode_step(tp, tx, tree_from_jax(st), tc)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     _assert_tree(tst, jax.device_get(jst))
@@ -235,18 +264,18 @@ def _margin_ok(logits):
 @pytest.mark.parametrize("arch,ring", [("zamba2-2.7b", False),
                                        ("zamba2-2.7b", True),
                                        ("xlstm-125m", False)])
-def test_prefill_and_decode_match_reference(arch, ring):
+def test_prefill_and_decode_match_reference(arch, ring, jref):
     """Fused prefill (logits and every cache: the shared attention
     block's KV cache in each superblock, the SSM states and conv windows,
     the mLSTM and sLSTM state tuples), then 6 greedy decode steps; the
     ring case prefills token by token into a 16-slot window and wraps."""
     jc, tc = _configs(arch)
     B, S, steps, window = 2, 32, 6, 16
-    jp = JT.init_params(jc, jax.random.PRNGKey(0), JEC)
+    jp = jref.params(jc)
     tp = tree_from_jax(jax.device_get(jp))
     tokens = np.random.default_rng(1).integers(0, jc.vocab, size=(B, S),
                                                dtype=np.int32)
-    jdec = jax.jit(functools.partial(JT.decode_step, jc, JEC, ring=ring))
+    jdec = jref.decode(jc, ring)
     if ring:
         jcache = JT.init_cache(jc, JEC, B, window, ring=True)
         tcache = T.init_cache(tc, EC, B, window, ring=True, device="cpu")
@@ -257,9 +286,10 @@ def test_prefill_and_decode_match_reference(arch, ring):
                                        ring=True)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     else:
-        jl, _, jcache = jax.jit(functools.partial(
-            JT.forward, jc, JEC, collect_cache_len=S + steps))(
-                jp, jnp.asarray(tokens))
+        jl, _, jcache = jref.jit(JT.forward, "cfg", "ec",
+                                 "collect_cache_len")(
+            cfg=jc, ec=JEC, params=jp, tokens=jnp.asarray(tokens),
+            collect_cache_len=S + steps)
         tl, aux, tcache = T.forward(tc, EC, tp, torch.from_numpy(tokens),
                                     collect_cache_len=S + steps)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
