@@ -51,7 +51,8 @@ Phases, each printing its own lines:
    float32: equal greedy tokens, logits within 1e-3, and two runs on the
    card bitwise equal, caches included;
 12. the sequential modes on catch: examples/specs/baseline_catch.json
-   and synchronized_catch.json through build_trainer (init, 2 cycles
+   and synchronized_catch.json, prepopulate cut to RESUME_PREPOPULATE,
+   through build_trainer (init, 2 cycles
    with s/cycle and env-steps/s, one eval, no custom kernel launched),
    two cycles from one carry bitwise equal, and a small configuration
    of each mode against the CPU path (integers exact, floats to 1e-4);
@@ -216,7 +217,24 @@ Phases, each printing its own lines:
    records, none failed, each with its per-device flops, bytes,
    collective bytes and dominant term), and --arch dqn on the card
    through the same entry point in this process (8 records, the PER
-   and C51 presets counting their kernels).
+   and C51 presets counting their kernels). mistral-nemo-12b's prefill
+   and decode records on both meshes are held to the reference's own
+   dry-run figures (``DRYRUN_REFERENCE``, from ``python -m
+   repro.launch.dryrun`` on a CPU) as tests/test_torch_dryrun.py holds
+   them: the ratio within DRYRUN_RATIO, and within 3% once the two
+   differences it names are counted out;
+30. the DQN path in bfloat16: phase 5's run (dqn_nature84.json, rainbow,
+   84x84x4 pong, the Nature CNN, W=8, replay 16384) with compute_dtype
+   bfloat16, C cut to BF16_STEPS, prepopulate to BF16_PREPOPULATE and
+   pong's episodes to BF16_EPISODE_STEPS steps: 2
+   cycles and one eval with each kernel's launches counted as in phase 5
+   (the DQN kernels still see float32), s/cycle beside a float32 cycle
+   of the same C from the same carry and beside phase 5's cycles; the
+   bf16 run of phase 6's small
+   configuration on the card against the same on the CPU (integer state
+   equal, float leaves within the rounding bound of
+   tests/test_torch_dqn_bf16.py); two bf16 cycles (C=BF16_RERUN_STEPS)
+   from one carry bitwise equal.
    Each phase prints its wall time, and the run its total; phases 15-18
    keep their checkpoints in a temporary directory they remove.
 
@@ -247,7 +265,7 @@ run for the SSD scan and its xlstm run for the sLSTM scan), with all
 counts set to 0
 just before that run; ``launches_by_path`` adds each kernel's launches
 per step or cycle on phases 20-21's paths, per step on phases 23 and
-25's and per run on phases 22 and 24's. The line
+25's, per run on phases 22 and 24's and over phase 30's bf16 run. The line
 before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero before
 printing it. Without a CUDA device, or without the repository's src/
@@ -316,7 +334,7 @@ RESUME_STEPS, RESUME_PREPOPULATE = 32, 256
 # the sweep phase's manifest, taken as committed and cut in a copy
 SWEEP_MANIFEST = ROOT / "examples" / "specs" / "catch_lr_seeds_sweep.json"
 SWEEP_CYCLES = 3
-SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 100, 10
+SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 50, 10
 # phases 19-21: the train launcher on xlstm-125m at full width and depth
 # (batch, sequence, steps), zamba2-2.7b cut to AL_SUPERBLOCKS of its 9
 # superblocks for CUT_TRAIN_STEPS steps and for the actor-learner (AL_*:
@@ -725,6 +743,10 @@ def _paths(obj, prefix=""):
             yield from _paths(v, f"{prefix}[{i}]")
 
 
+# phase 5's C and its cycles' seconds, which phase 30 prints beside its own
+C_MAIN: list = []
+
+
 def phase_main_path(dev):
     from repro_torch.api.spec import ExperimentSpec
     from repro_torch.api.trainers import ConcurrentTrainer
@@ -746,11 +768,13 @@ def phase_main_path(dev):
     say(f"main init_carry: {time.perf_counter() - t0:.2f} s (prepopulate "
         f"{spec.schedule.prepopulate}, replay {spec.algo.replay_capacity})")
     first = None
+    C_MAIN[:] = [C]
     for i in range(2):
         t0 = time.perf_counter()
         carry, m = trainer.cycle(carry)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        C_MAIN.append(dt)
         loss = float(m["loss"][0])
         say(f"main cycle {i + 1}: {dt:.3f} s, {C / dt:.1f} env-steps/s, "
             f"loss {loss:.6f}")
@@ -879,14 +903,19 @@ def _agree(on_cpu, on_card, label: str) -> float:
 
 def phase_sequential(dev):
     """The sequential modes on catch: examples/specs/baseline_catch.json
-    and synchronized_catch.json through build_trainer on the card (init,
-    2 cycles, one eval); two cycles from one carry bitwise equal; a small
-    configuration of each mode against the CPU path."""
+    and synchronized_catch.json (prepopulate cut) through build_trainer
+    on the card (init, 2 cycles, one eval); two cycles from one carry
+    bitwise equal; a small configuration of each mode against the CPU
+    path."""
     from repro_torch.api.spec import AlgoSpec, ScheduleSpec
     from repro_torch.api.trainers import build_trainer
     from repro_torch.configs.dqn_nature import get_variant
     for name in SEQUENTIAL_SPECS:
         spec = _spec_file(name)
+        # the replay's prepopulation cut (the sequential init fills it one
+        # synchronized round after another)
+        spec = dataclasses.replace(spec, schedule=dataclasses.replace(
+            spec.schedule, prepopulate=RESUME_PREPOPULATE))
         trainer = build_trainer(spec, device="cuda")
         C = spec.schedule.cycle_steps
         reset_launches()
@@ -3438,6 +3467,22 @@ COST_DECODE_CACHE = SERVE_PROMPT + SERVE_GEN
 EP_GEN = 8
 DRYRUN_ARCHS = ("mistral-nemo-12b", "qwen2-moe-a2.7b")
 DRYRUN_SHAPES = "train_4k,prefill_32k,decode_32k"
+# the reference's per-device flops for mistral's prefill and decode
+# records (``python -m repro.launch.dryrun --arch mistral-nemo-12b --shape
+# prefill_32k,decode_32k --mesh both --moe-impl expert_parallel`` on a
+# CPU), the ratio the port's may have to them, and the data-parallel
+# ways of each mesh
+DRYRUN_REFERENCE = {("prefill_32k", "16x16"): 188026854136610.0,
+                    ("prefill_32k", "2x16x16"): 94056382257954.0,
+                    ("decode_32k", "16x16"): 22942182820.0,
+                    ("decode_32k", "2x16x16"): 11471112288.0}
+DRYRUN_RATIO = (0.9, 1.3)
+DRYRUN_DATA_WAYS = {"16x16": 16, "2x16x16": 32}
+# phase 30: the bf16 DQN run's C and prepopulate, the C of its rerun,
+# and pong's episode cap (the eval runs the cap's rounds whatever the
+# episodes do: 500 for pong as committed)
+BF16_STEPS, BF16_PREPOPULATE, BF16_RERUN_STEPS = 64, 256, 24
+BF16_EPISODE_STEPS = 250
 
 
 def _random_params(cfg, ec, seed: int, dtype=None):
@@ -3765,6 +3810,10 @@ def phase_dryrun_check(runs: list, dqn: tuple) -> None:
             f"{r['collective_bytes_per_device']:.4e} B/dev, dominant "
             f"{r['dominant']}, {r['hbm_gb_per_device']:.2f} GB/dev, "
             f"useful {r['useful_ratio']:.3f}, trace {r['trace_s']} s")
+    for r in llm:
+        if (r["arch"] == "mistral-nemo-12b"
+                and (r["shape"], r["mesh"]) in DRYRUN_REFERENCE):
+            _dryrun_against_reference(r)
     for r in dqn:
         name = r["variant"]
         want = set()
@@ -3777,6 +3826,180 @@ def phase_dryrun_check(runs: list, dqn: tuple) -> None:
         say(f"dry run dqn {name} (1x1, on the card): "
             f"{r['flops_per_device']:.4e} flop, {r['bytes_per_device']:.4e}"
             f" B, kernels {r['kernel_calls']}, {r['trace_s']} s")
+
+
+def _dryrun_against_reference(r: dict) -> None:
+    """A mistral record's per-device flops against the reference's:
+    the ratio within DRYRUN_RATIO, and within 3% with the two differences
+    counted out (tests/test_torch_dryrun.py): the port's K and V
+    projections over all 8 KV heads on each of 16 model ranks (XLA's
+    partitioner computes the one head a rank reads), and the reference's
+    attention over every (query, key) pair (the port's flash kernel
+    counts the causal pairs)."""
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.configs import get_config
+    cfg, sc = get_config(r["arch"]), INPUT_SHAPES[r["shape"]]
+    ref = DRYRUN_REFERENCE[(r["shape"], r["mesh"])]
+    b_loc = sc.global_batch // DRYRUN_DATA_WAYS[r["mesh"]]
+    tokens = b_loc * (1 if sc.kind == "decode" else sc.seq_len)
+    hd, ways = cfg.resolved_head_dim, 16
+    kv = (2 * 2 * tokens * cfg.d_model * (cfg.n_kv_heads - 1) * hd
+          * cfg.n_layers if cfg.n_kv_heads % ways else 0)
+    S = sc.seq_len
+    masked = (0 if sc.kind == "decode" else 4 * hd * b_loc
+              * (cfg.n_heads // ways) * cfg.n_layers
+              * (S * S - S * (S + 1) // 2))
+    port = r["flops_per_device"]
+    ratio, attributed = port / ref, (port - kv + masked) / ref
+    check(DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]
+          and abs(attributed - 1) <= 0.03,
+          f"dry run {r['shape']} {r['mesh']}: {port:.4e} flop/dev against "
+          f"the reference's {ref:.4e} ({ratio:.3f}x; {attributed:.3f}x with "
+          f"the K/V projections and the masked pairs counted out)")
+    say(f"dry run {r['arch']} {r['shape']} {r['mesh']} against the "
+        f"reference: {port:.4e} vs {ref:.4e} flop/dev, {ratio:.3f}x "
+        f"({attributed:.3f}x with the whole K/V projections, "
+        f"{kv:.4e}, and the reference's masked pairs, {masked:.4e}, "
+        f"counted out)")
+
+
+def _bf16_spec(spec):
+    return dataclasses.replace(spec, exec=dataclasses.replace(
+        spec.exec, compute_dtype="bfloat16"))
+
+
+def _agree_bf16(on_cpu, on_card, f32, depth: int, lr_steps: float,
+                label: str) -> float:
+    """A bf16 carry from the card against one from the CPU: integer state
+    equal; a float leaf within the CPU's own bf16-to-float32 distance
+    (``f32``: the same cycle in float32 on the CPU) plus 2 x depth bf16
+    steps of its largest magnitude, a parameter also within 2 lr per
+    update (tests/test_torch_dqn_bf16.py's bound). Returns the largest
+    float error as a share of its bound."""
+    card, ref32 = dict(_paths(on_card, "carry")), dict(_paths(f32, "carry"))
+    worst = 0.0
+    for path, a in _paths(on_cpu, "carry"):
+        b = card[path].cpu()
+        if not a.dtype.is_floating_point:
+            check(torch.equal(a, b), f"{label} {path}: card and CPU differ")
+            continue
+        if not a.numel():
+            continue
+        noise = float((a - ref32[path]).abs().max())
+        bound = noise + 2 * depth * 2.0 ** -8 * float(a.abs().max())
+        if ".params." in path:
+            bound = max(bound, lr_steps)
+        err = float((a - b).abs().max())
+        check(err <= bound, f"{label} {path}: card and CPU differ by {err} "
+              f"(bound {bound})")
+        worst = max(worst, err / bound if bound else 0.0)
+    return worst
+
+
+def phase_bf16(dev) -> dict:
+    """Phase 30: the DQN path with the Q-network in bfloat16."""
+    from repro_torch.api.spec import AlgoSpec, ExperimentSpec, ScheduleSpec
+    from repro_torch.api.trainers import ConcurrentTrainer, build_trainer
+    from repro_torch.configs.dqn_nature import get_variant
+    from repro_torch.core.population import tree_map
+    from repro_torch.kernels import categorical_projection as cp
+    from repro_torch.kernels import segment_tree as st
+    spec = ExperimentSpec.from_json(SPEC.read_text())
+    spec = dataclasses.replace(
+        _bf16_spec(spec), variant=get_variant("rainbow"), mode="concurrent",
+        env_params={**spec.env_params, "max_steps": BF16_EPISODE_STEPS},
+        schedule=dataclasses.replace(spec.schedule, cycle_steps=BF16_STEPS,
+                                     prepopulate=BF16_PREPOPULATE))
+    trainer = ConcurrentTrainer(spec, device="cuda")
+    f32 = ConcurrentTrainer(dataclasses.replace(
+        spec, exec=dataclasses.replace(spec.exec, compute_dtype="float32")),
+        device="cuda")
+    per_cycle = BF16_STEPS // spec.algo.train_period
+    builds = len(st.tree_build_plan(
+        st.next_pow2(spec.algo.replay_capacity)))
+    reset_launches()
+    t0 = time.perf_counter()
+    carry = trainer.init_carry()
+    torch.cuda.synchronize()
+    say(f"bf16 init_carry: {time.perf_counter() - t0:.2f} s (prepopulate "
+        f"{BF16_PREPOPULATE})")
+    check(all(v.dtype == torch.float32 for v in carry.params.values()),
+          "bf16 run: parameters are not float32")
+    first = None
+    for i in range(2):
+        t0 = time.perf_counter()
+        carry, m = trainer.cycle(carry)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        say(f"bf16 cycle {i + 1} (C={BF16_STEPS}): {dt:.3f} s, "
+            f"{BF16_STEPS / dt:.1f} env-steps/s, loss "
+            f"{float(m['loss'][0]):.6f}")
+        check(torch.isfinite(m["loss"]).all().item(), "bf16: non-finite loss")
+        for name, fn in (("segment_tree", st.segment_tree_sample),
+                         ("categorical_projection",
+                          cp.categorical_projection)):
+            check(fn.launches == per_cycle * (i + 1),
+                  f"bf16: {name} launched {fn.launches} times after {i + 1} "
+                  f"cycle(s), expected {per_cycle * (i + 1)}")
+        check(st.tree_build.launches == builds * (i + 1),
+              f"bf16: tree_build launched {st.tree_build.launches} times "
+              f"after {i + 1} cycle(s), expected {builds} per cycle")
+        if first is None:
+            first = _clone(carry)
+    t0 = time.perf_counter()
+    evals = trainer.eval(carry, trainer.eval_key(1))
+    torch.cuda.synchronize()
+    say(f"bf16 eval: {time.perf_counter() - t0:.2f} s, return "
+        f"{float(evals[0]):+.3f} over {spec.schedule.eval_episodes} streams")
+    launches = read_launches()
+    check(torch.isfinite(evals).all().item(), "bf16: non-finite eval return")
+    check(all(launches[k] == 0 for k in launches
+              if k not in ("segment_tree", "categorical_projection",
+                           "tree_build")),
+          f"the bf16 DQN path launched a serve kernel: {launches}")
+    for path, t in _paths(carry, "carry"):
+        check(t.device.type == "cuda", f"bf16 {path} is on {t.device}")
+    say(f"bf16 launches over init_carry + 2 cycles + eval: {launches}")
+    # cycle 2 again in float32 (the same C, from the same carry)
+    t0 = time.perf_counter()
+    f32.cycle(_clone(first))
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    say(f"bf16 phase: cycle 2 (C={BF16_STEPS}) in bfloat16 {dt:.3f} s, in "
+        f"float32 from the same carry {f32_s:.3f} s; phase 5's float32 "
+        f"cycles at C={C_MAIN[0]}: "
+        + ", ".join(f"{s:.3f} s ({s / C_MAIN[0] * BF16_STEPS:.3f} s per "
+                    f"{BF16_STEPS} steps)" for s in C_MAIN[1:]))
+    # the card against the CPU on phase 6's small configuration
+    small = ExperimentSpec(
+        env="pong", mode="concurrent", variant=get_variant("rainbow"),
+        envs=4, frame_size=10, net="tiny",
+        schedule=ScheduleSpec(cycles=1, cycle_steps=32, prepopulate=64),
+        algo=AlgoSpec(minibatch_size=8, replay_capacity=256,
+                      optimizer="rmsprop"))
+    on_cpu = build_trainer(_bf16_spec(small), device="cpu")
+    c0 = on_cpu.init_carry()
+    runs = {}
+    for label, sp, device in (("f32", small, "cpu"),
+                              ("cpu", _bf16_spec(small), "cpu"),
+                              ("cuda", _bf16_spec(small), "cuda")):
+        runs[label], _ = build_trainer(sp, device=device).cycle(
+            tree_map(lambda t: t.to(device, copy=True), c0))
+    ncfg = on_cpu._c.ncfg
+    depth = len(ncfg.convs) + 2 + int(ncfg.dueling)
+    updates = small.schedule.cycle_steps // small.algo.train_period
+    worst = _agree_bf16(runs["cpu"], runs["cuda"], runs["f32"], depth,
+                        2 * 2.5e-4 * updates, "bf16 pong 10x10")
+    say(f"bf16 agreement with the CPU path (pong 10x10, tiny net, rainbow, "
+        f"1 cycle from one carry): integer state equal, floats within "
+        f"{worst:.3f} of the bound (the CPU's bf16-to-float32 distance "
+        f"plus {2 * depth} bf16 steps; params also 2 lr per update)")
+    short = dataclasses.replace(spec, schedule=dataclasses.replace(
+        spec.schedule, cycle_steps=BF16_RERUN_STEPS))
+    phase_determinism(ConcurrentTrainer(short, device="cuda"), first,
+                      f"bf16 C={BF16_RERUN_STEPS}: ")
+    return {f"dqn_nature84 rainbow bf16 (C={BF16_STEPS}, 2 cycles + eval)":
+            launches}
 
 
 def main() -> int:
@@ -3911,6 +4134,7 @@ def main() -> int:
     dry.cleanup()
     say(f"cost, expert-parallel and dry-run phases: "
         f"{time.perf_counter() - t0:.1f} s")
+    new_paths.update(timed("30 (DQN in bf16)", phase_bf16, dev))
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

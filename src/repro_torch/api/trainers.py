@@ -144,19 +144,17 @@ class _Components:
 
     def __init__(self, spec: ExperimentSpec):
         self.env = make_env(spec.env, **spec.env_params)
-        if spec.exec.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {spec.exec.compute_dtype!r}: the port's DQN "
-                "path runs in float32 only (ROADMAP.md, queue 1 item 7)")
         # the observation pipeline every sampler and eval path consumes
         self.obs = (vector_obs(self.env) if spec.obs_mode == "vector"
                     else pixel_obs(spec.frame_size))
         self.ncfg = spec.cnn_config(self.env.n_actions)
         self.dcfg = spec.dqn_config()
+        ec = spec.exec
         ncfg = self.ncfg
         # trailing noise key (NoisyNet; None = μ-only, e.g. greedy eval)
-        self.qf = lambda p, o, k=None: q_forward(p, o, ncfg, noise_key=k)
-        self.qlog = ((lambda p, o, k=None: q_logits(p, o, ncfg, noise_key=k))
+        self.qf = lambda p, o, k=None: q_forward(p, o, ncfg, ec, noise_key=k)
+        self.qlog = ((lambda p, o, k=None: q_logits(p, o, ncfg, ec,
+                                                    noise_key=k))
                      if spec.variant.distributional else None)
         lr = spec.algo.learning_rate
         if spec.algo.optimizer == "rmsprop":

@@ -12,7 +12,8 @@ states in the same launch; on a CPU tensor it runs the plain version of
 split and fixed-order combine in plain PyTorch, and
 ``kernel_split_plan`` reports the split the kernel picks; the tests use
 both. Forward only. Fake tensors take a shape-only branch and DTensors
-run on their local shards, along batch and heads (``route``).
+run on their local shards, along batch and query heads, a rank's KV
+heads those its query heads read (``route``).
 """
 
 from __future__ import annotations
@@ -131,8 +132,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if route.is_sharded(q, k_cache, v_cache, cache_len):
         return route.sharded(
             decode_attention,
-            (("b", None, "h", None), ("b", "h", None, None),
-             ("b", "h", None, None),
+            (("b", None, "h", None), ("b", "kv", None, None),
+             ("b", "kv", None, None),
              () if isinstance(cache_len, torch.Tensor) else None),
             ("b", None, "h", None), q, k_cache, v_cache, cache_len)
     return route.call("decode_attention",

@@ -12,7 +12,8 @@ the kernel layout (B, H, S, D). A call that must record a gradient
 goes through ``recompute.PlainRecompute``: the kernel forward, the plain
 version's autograd backward (the reference's ``custom_vjp`` rule). Fake
 tensors take a shape-only branch and DTensors run on their local shards,
-along batch and heads (``route``).
+along batch and query heads, a rank's KV heads those its query heads
+read (``route``).
 """
 
 from __future__ import annotations
@@ -61,10 +62,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card a call that needs a gradient gets it from the plain version
     (``recompute``)."""
     if route.is_sharded(q, k, v):
-        lab = ("b", None, "h", None)
+        lab, kv = ("b", None, "h", None), ("b", None, "kv", None)
         return route.sharded(
             lambda q, k, v: flash_attention(q, k, v, causal, window),
-            (lab, lab, lab), lab, q, k, v)
+            (lab, kv, kv), lab, q, k, v)
     return route.call("flash_attention",
                       lambda: flash_attention_work(q, k, causal, window),
                       _launch, flash_attention_plain, _shape_only,

@@ -111,8 +111,16 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
     The placements follow the first argument's: a mesh dim on which it
     is sharded along a named dim shards every argument and output along
     that name, if each such dim divides by the ways it is split;
-    otherwise everything is whole on that mesh dim."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    otherwise everything is whole on that mesh dim.
+
+    A dim named ``"kv"`` holds the key/value heads of grouped-query
+    attention, each serving a group of the ``"h"`` (query) heads. It
+    follows ``"h"``: sharded the same ways where it divides by them;
+    where the ways are a multiple of it instead, each rank's query heads
+    all fall in one group, so that argument stays whole and ``fn`` gets
+    the rank's one KV head (its gradient a partial sum over the ranks
+    that share the head)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     lead = args[0]
     mesh = lead.device_mesh
@@ -123,16 +131,29 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
         ok = name is not None and all(
             lab is None or name not in lab or a.shape[lab.index(name)] % n == 0
             for a, lab in zip(args, labels))
+        if ok and name == "h":
+            ok = all(lab is None or "kv" not in lab
+                     or n % a.shape[lab.index("kv")] == 0
+                     or a.shape[lab.index("kv")] % n == 0
+                     for a, lab in zip(args, labels))
         if ok:
             ways[name] = n
         chosen.append(name if ok else None)
+    # the "kv" dims that divide by the query heads' ways shard with them;
+    # the others stay whole and are narrowed to the rank's KV head
+    n_h = ways.get("h", 1)
+    narrow = {j for j, (a, lab) in enumerate(zip(args, labels))
+              if lab is not None and "kv" in lab
+              and a.shape[lab.index("kv")] % n_h}
 
-    def placements(lab):
+    def placements(lab, j=None):
         return [Shard(lab.index(n)) if n is not None and n in lab
+                else Shard(lab.index("kv"))
+                if n == "h" and "kv" in lab and j not in narrow
                 else Replicate() for n in chosen]
 
-    in_pl = tuple(placements(lab) if lab is not None else None
-                  for lab in labels)
+    in_pl = tuple(placements(lab, j) if lab is not None else None
+                  for j, lab in enumerate(labels))
     if out_labels and isinstance(out_labels[0], tuple):
         out_pl = tuple(placements(lab) for lab in out_labels)
     else:
@@ -143,5 +164,26 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
                  if isinstance(a, torch.Tensor)
                  and not isinstance(a, DTensor) and lab is not None else a
                  for a, lab in zip(args, labels))
-    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+    local, grad_pl = fn, None
+    if narrow:
+        coord = mesh.get_coordinate()
+        rank = 0                       # this rank's index among the h ways
+        for i, n in enumerate(chosen):
+            if n == "h":
+                rank = rank * mesh.size(i) + coord[i]
+        grad_pl = tuple(
+            None if lab is None else
+            [Partial() if j in narrow and n == "h" else p
+             for n, p in zip(chosen, in_pl[j])]
+            for j, lab in enumerate(labels))
+
+        def local(*xs):
+            xs = list(xs)
+            for j in narrow:
+                dim = labels[j].index("kv")
+                head = rank * xs[j].shape[dim] // n_h
+                xs[j] = xs[j].narrow(dim, head, 1)
+            return fn(*xs)
+    return local_map(local, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

@@ -303,6 +303,12 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-impl", default="scatter",
                     choices=["scatter", "dense", "expert_parallel"])
     ap.add_argument("--kv-seq-shard", action="store_true")
+    # the reference's --slstm-unroll and --decode-repeat-kv are left out:
+    # the sLSTM scan and decode attention are kernels here (no XLA scan to
+    # unroll, and the decode kernel reads grouped KV heads as they are)
+    ap.add_argument("--mlstm-recurrent", action="store_true",
+                    help="the mLSTM's step recurrence in place of its "
+                         "chunkwise-parallel form")
     ap.add_argument("--device", default="cuda",
                     help="the fake tensors' device (LLM grid) or the one "
                          "the DQN cycles run on (--arch dqn)")
@@ -323,7 +329,8 @@ def main(argv=None) -> int:
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     ec = ExecConfig(remat=not args.no_remat, fsdp=args.fsdp,
-                    moe_impl=args.moe_impl, kv_seq_shard=args.kv_seq_shard)
+                    moe_impl=args.moe_impl, kv_seq_shard=args.kv_seq_shard,
+                    mlstm_chunked=not args.mlstm_recurrent)
     tc = TrainConfig(remat=not args.no_remat)
     results = _load(args.out)
     done = {(r["arch"], r["shape"], r["mesh"], r.get("variant", "baseline"))

@@ -128,8 +128,8 @@ def parse_args(argv=None):
                     help="append per-(cycle, replica) metrics as JSON lines")
     ap.add_argument("--compute-dtype", default=None,
                     choices=["float32", "bfloat16"],
-                    help="Q-network compute dtype (the port's DQN path "
-                         "runs float32 only)")
+                    help="Q-network compute dtype (paper default f32; "
+                         "bf16 halves actor-inference bandwidth)")
     ap.add_argument("--dryrun", action="store_true",
                     help="one tiny run: W=4, 2 cycles of 32 steps")
     ap.add_argument("--sweep", default=None, metavar="FILE",

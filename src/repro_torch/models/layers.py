@@ -3,8 +3,8 @@ MLPs and the cross-entropy loss of the transformer stack, and the
 NoisyNet layers (Fortunato et al. 2018) of the Q-network.
 
 ``rms_norm`` goes through the RMSNorm kernel op (``kernels/ops``); the
-MLP products are plain ``torch.matmul`` calls in the input's type, as the
-reference leaves them to XLA.
+MLP products are plain 2-D products (``linear``) in the input's type, as
+the reference leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -92,20 +92,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) by w (d, n) as one product over the rows of x: what
+    ``torch.matmul`` folds to for a dense x. A DTensor's ``matmul`` of a
+    decode step's (B, 1, d) broadcasts w to a batched product instead,
+    copying the weight shard once per row."""
+    if x.dim() <= 2:
+        return torch.matmul(x, w)
+    y = torch.matmul(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    g = torch.matmul(x, w_gate.to(dt))
-    u = torch.matmul(x, w_up.to(dt))
-    return torch.matmul(F.silu(g) * u, w_down.to(dt))
+    g = linear(x, w_gate.to(dt))
+    u = linear(x, w_up.to(dt))
+    return linear(F.silu(g) * u, w_down.to(dt))
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
              w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = torch.matmul(x, w_up.to(dt)) + b_up.to(dt)
+    h = linear(x, w_up.to(dt)) + b_up.to(dt)
     h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h, w_down.to(dt)) + b_down.to(dt)
+    return linear(h, w_down.to(dt)) + b_down.to(dt)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -143,12 +154,14 @@ def noisy_linear(x: torch.Tensor, w_mu: torch.Tensor, w_sigma: torch.Tensor,
     ``key=None`` is the noise-free μ-only path. With a leading replica
     axis R (x (R, B, in), weights (R, in, out), biases (R, out), keys
     (R, 2)) each replica draws its noise from its own key and the
-    products are batched."""
+    products are batched. The weights are drawn in their own dtype and
+    cast to x's, in which the product runs."""
+    dt = x.dtype
     if key is None:
-        return x @ w_mu + b_mu.unsqueeze(-2)
+        return x @ w_mu.to(dt) + b_mu.to(dt).unsqueeze(-2)
     k = rng.split(key)
     ein = factorized_noise(k[..., 0, :], w_mu.shape[-2])
     eout = factorized_noise(k[..., 1, :], w_mu.shape[-1])
     w = w_mu + w_sigma * (ein[..., :, None] * eout[..., None, :])
     b = b_mu + b_sigma * eout
-    return x @ w + b.unsqueeze(-2)
+    return x @ w.to(dt) + b.to(dt).unsqueeze(-2)

@@ -61,7 +61,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.models.layers import (gelu_mlp, rms_norm, rope_tables,
+from repro_torch.models.layers import (gelu_mlp, linear, rms_norm, rope_tables,
                                        rotate, round_up, swiglu)
 
 Tree = Any
@@ -245,9 +245,9 @@ def _mlp(bp, x: torch.Tensor, cfg: ModelConfig, ec: ExecConfig):
 def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
     hd = cfg.resolved_head_dim
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    q = _heads(torch.matmul(h, bp["wq"].to(h.dtype)), cfg.n_heads, hd)
-    k = _heads(torch.matmul(h, bp["wk"].to(h.dtype)), cfg.n_kv_heads, hd)
-    v = _heads(torch.matmul(h, bp["wv"].to(h.dtype)), cfg.n_kv_heads, hd)
+    q = _heads(linear(h, bp["wq"].to(h.dtype)), cfg.n_heads, hd)
+    k = _heads(linear(h, bp["wk"].to(h.dtype)), cfg.n_kv_heads, hd)
+    v = _heads(linear(h, bp["wv"].to(h.dtype)), cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -265,7 +265,7 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
     else:
         o = A.bidirectional_attention(q, k, v)
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
-    out = torch.matmul(o, bp["wo"].to(o.dtype))
+    out = linear(o, bp["wo"].to(o.dtype))
     if return_kv:
         return out, k, v
     return out
@@ -273,22 +273,22 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
 
 def _cross_query(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
-    return _heads(torch.matmul(h, bp["wq_x"].to(h.dtype)), cfg.n_heads,
+    return _heads(linear(h, bp["wq_x"].to(h.dtype)), cfg.n_heads,
                   cfg.resolved_head_dim)
 
 
 def _memory_kv(bp, memory: torch.Tensor, cfg: ModelConfig):
     """A CROSS_ATTN block's K and V of the memory, (B, M, Hkv, hd) each."""
     hd = cfg.resolved_head_dim
-    k = torch.matmul(memory, bp["wk_x"].to(memory.dtype))
-    v = torch.matmul(memory, bp["wv_x"].to(memory.dtype))
+    k = linear(memory, bp["wk_x"].to(memory.dtype))
+    v = linear(memory, bp["wv_x"].to(memory.dtype))
     return _heads(k, cfg.n_kv_heads, hd), _heads(v, cfg.n_kv_heads, hd)
 
 
 def _cross_out(bp, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The cross-attention's output projection, tanh-gated for the VLM."""
     o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
-    o = torch.matmul(o, bp["wo_x"].to(o.dtype))
+    o = linear(o, bp["wo_x"].to(o.dtype))
     if "gate_x" in bp:
         o = o * torch.tanh(bp["gate_x"].to(o.dtype))
     return o
@@ -366,8 +366,8 @@ def _store(slot: Dict[str, Tree], entry: Dict[str, Tree]) -> None:
 
 def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].to(x.dtype).t())
-    return torch.matmul(x, params["unembed"].to(x.dtype))
+        return linear(x, params["embed"].to(x.dtype).t())
+    return linear(x, params["unembed"].to(x.dtype))
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
@@ -590,7 +590,7 @@ def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, at: Dict,
                                at["slot"])
         o = A.decode_attention(q, kc, vc, at["cache_len"])
         o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
-        x = x + torch.matmul(o, bp["wo"].to(o.dtype))
+        x = x + linear(o, bp["wo"].to(o.dtype))
         if kind == CROSS_ATTN:
             o = A.decode_attention(_cross_query(bp, x, cfg),
                                    cache_slice["ck"], cache_slice["cv"],

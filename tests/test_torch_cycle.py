@@ -239,15 +239,37 @@ def test_launcher_runs_population_and_seeds(tmp_path, capsys, extra,
     assert f"steps      16 x{replicas} " in out, out
 
 
-@pytest.mark.parametrize("extra,item", [
-    (("--compute-dtype", "bfloat16"), "item 7")])
-def test_launcher_refuses_unported_modes(tmp_path, capsys, extra, item):
+def test_launcher_trains_bf16_and_serves_its_checkpoint(tmp_path,
+                                                        monkeypatch):
+    """``--compute-dtype bfloat16`` trains (the Q-network computes in
+    bf16, the parameters stay float32), and ``load_policy`` serves its
+    checkpoint in bf16: every convolution of the warm start and the
+    served ticks runs in bf16."""
+    import torch.nn.functional as F
+    from repro_torch.api.policy_client import SimulatedClients, drive
+    from repro_torch.api.serve import ServeSpec, load_policy, make_server
     from repro_torch.launch import rl_train
+    torch.set_num_threads(1)
     path = tmp_path / "spec.json"
     path.write_text(_specs("dqn")[1].to_json())
+    d = tmp_path / "run"
     assert rl_train.main(["--spec", str(path), "--device", "cpu",
-                          *extra]) == 2
-    assert item in capsys.readouterr().err
+                          "--compute-dtype", "bfloat16", "--cycles", "1",
+                          "--cycle-steps", "16", "--prepopulate", "32",
+                          "--ckpt-dir", str(d), "--ckpt-every", "1"]) == 0
+    loaded = load_policy(str(d), device="cpu")
+    assert loaded.spec.exec.compute_dtype == "bfloat16" and loaded.step == 1
+    assert all(v.dtype == torch.float32 for v in loaded.params.values())
+    seen = []
+    conv = F.conv2d
+    monkeypatch.setattr(F, "conv2d", lambda x, w, **kw: seen.append(
+        (x.dtype, w.dtype)) or conv(x, w, **kw))
+    srv = make_server(loaded, ServeSpec(max_batch=8))
+    assert srv.warm_start(3) == 4
+    stats = drive(srv, SimulatedClients(loaded.spec, 3, seed=1,
+                                        device="cpu"), 3)
+    assert stats["actions"] == 9
+    assert seen and set(seen) == {(torch.bfloat16, torch.bfloat16)}
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--sweep"])
