@@ -25,7 +25,9 @@ Phases, each printing its own lines:
    DQN kernels; the DQN kernels also at R = 4 and 16 replicas;
 5. the DQN path: ConcurrentTrainer on examples/specs/dqn_nature84.json
    with the rainbow variant (84x84x4 pong frames, the Nature CNN, W=8,
-   C=512, F=2, a 16384-slot replay): init_carry, 2 cycles and one eval,
+   F=2, a 16384-slot replay; C cut to MAIN_STEPS, prepopulate to
+   MAIN_PREPOPULATE and pong's episodes to MAIN_EPISODE_STEPS steps):
+   init_carry, 2 cycles and one eval,
    with each kernel's launches counted (the tree build's per cycle too),
    then the kernel launches and device busy time of a cycle (C cut to
    32) from a capture of CUDA activity alone (``launch_count``);
@@ -51,7 +53,8 @@ Phases, each printing its own lines:
    float32: equal greedy tokens, logits within 1e-3, and two runs on the
    card bitwise equal, caches included;
 12. the sequential modes on catch: examples/specs/baseline_catch.json
-   and synchronized_catch.json, prepopulate cut to RESUME_PREPOPULATE,
+   and synchronized_catch.json, C cut to SEQUENTIAL_STEPS and
+   prepopulate to RESUME_PREPOPULATE,
    through build_trainer (init, 2 cycles
    with s/cycle and env-steps/s, one eval, no custom kernel launched),
    two cycles from one carry bitwise equal, and a small configuration
@@ -88,7 +91,8 @@ Phases, each printing its own lines:
    runs cycle 2 as the card does (integers exact, floats to 1e-4);
 16. the launcher end to end: rl_train on rainbow_fleet.json with its 4
    seeds in processes of its own with --ckpt-dir and --metrics-jsonl for
-   2 cycles, then --cycles 3 --resume (the resume line, 4 metrics rows
+   2 cycles (this call and the one replica's below started before phase
+   15 and run beside it), then --cycles 3 --resume (the resume line, 4 metrics rows
    per cycle, one per replica), then a changed
    spec refused with exit 2 and its field diff (in this process: the
    refusal comes before any init); beside the fleet's first call, one
@@ -210,19 +214,26 @@ Phases, each printing its own lines:
    the scatter run's, with one all-reduce per MoE layer per step; a
    granite-moe-1b-a400m gradient bitwise the scatter path's;
    replica_mesh is None;
-29. the dry run (launch/dryrun.py), checked after phase 28: the grid of mistral-nemo-12b and qwen2-moe-a2.7b x
-   train_4k, prefill_32k, decode_32k x 16x16 and 2x16x16 with expert
-   parallelism (one process per arch on one host core, fake cuda
-   tensors on a fake process group, started before phase 8: 12
-   records, none failed, each with its per-device flops, bytes,
-   collective bytes and dominant term), and --arch dqn on the card
-   through the same entry point in this process (8 records, the PER
-   and C51 presets counting their kernels). mistral-nemo-12b's prefill
-   and decode records on both meshes are held to the reference's own
-   dry-run figures (``DRYRUN_REFERENCE``, from ``python -m
-   repro.launch.dryrun`` on a CPU) as tests/test_torch_dryrun.py holds
-   them: the ratio within DRYRUN_RATIO, and within 3% once the two
-   differences it names are counted out;
+29. the dry run (launch/dryrun.py), checked after phase 28: the
+   reference's grid on 16x16 with its default flags (the 10 archs x
+   train_4k, prefill_32k, decode_32k, long_500k: 40 records, in
+   len(DRYRUN_GRID) processes), and mistral-nemo-12b and
+   qwen2-moe-a2.7b x train_4k, prefill_32k, decode_32k x 16x16 and
+   2x16x16 with expert parallelism (one process per arch): one host
+   core each, fake cuda tensors on a fake process group, started
+   before phase 8; 52 records, none failed, each with its per-device
+   flops, bytes, collective bytes and dominant term; the time the
+   check waited for them. Then --arch dqn on the card through the same
+   entry point in this process (8 records, the PER and C51 presets
+   counting their kernels). Each grid record's per-device flops, with
+   the masked attention pairs the reference counts added back, are
+   within 3% of their attributed ratio to the reference's
+   (``DRYRUN_GRID_REFERENCE``, from ``python -m repro.launch.dryrun``
+   on a CPU; PERF.md attributes each ratio), and mistral-nemo-12b's
+   prefill and decode records on both meshes are held to the
+   reference's figures (``DRYRUN_REFERENCE``) as
+   tests/test_torch_dryrun.py holds them: the raw ratio within
+   DRYRUN_RATIO, and within 3% once the masked pairs are counted out;
 30. the DQN path in bfloat16: phase 5's run (dqn_nature84.json, rainbow,
    84x84x4 pong, the Nature CNN, W=8, replay 16384) with compute_dtype
    bfloat16, C cut to BF16_STEPS, prepopulate to BF16_PREPOPULATE and
@@ -296,6 +307,11 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
 SPEC = ROOT / "examples" / "specs" / "dqn_nature84.json"
+# phase 5's cut of dqn_nature84.json (its width kept): C, prepopulate and
+# pong's episode cap (the eval runs the cap's rounds whatever the episodes
+# do: 500 as committed); the spec's C=512 cycles took ~40 s each on a
+# fast host, and the script has to stay well inside its time limit
+MAIN_STEPS, MAIN_PREPOPULATE, MAIN_EPISODE_STEPS = 128, 1024, 250
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 outside the
 # tensor cores, bf16 dense on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -327,20 +343,22 @@ PROFILED_STEPS = 32
 # the sequential modes' committed specs, and the env steps of each of
 # Table 1's 14 cells
 SEQUENTIAL_SPECS = ("baseline_catch", "synchronized_catch")
-TABLE1_STEPS = 1000
-# the checkpoint phases' cut (C and prepopulate), and the serving load:
+SEQUENTIAL_STEPS = 64
+TABLE1_STEPS = 256
+# the checkpoint phases' cut (C and prepopulate; rainbow's 3-step returns
+# need C/W >= 3 rounds at W=8), and the serving load:
 # simulated clients on the pong checkpoint and ticks per policy
-RESUME_STEPS, RESUME_PREPOPULATE = 32, 256
+RESUME_STEPS, RESUME_PREPOPULATE = 24, 256
 # the sweep phase's manifest, taken as committed and cut in a copy
 SWEEP_MANIFEST = ROOT / "examples" / "specs" / "catch_lr_seeds_sweep.json"
 SWEEP_CYCLES = 3
-SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 50, 10
+SERVE_CLIENTS, SERVE_TICKS, BREAKDOWN_TICKS = 1024, 20, 10
 # phases 19-21: the train launcher on xlstm-125m at full width and depth
 # (batch, sequence, steps), zamba2-2.7b cut to AL_SUPERBLOCKS of its 9
 # superblocks for CUT_TRAIN_STEPS steps and for the actor-learner (AL_*:
 # ALConfig's defaults, W streams of a prompt and generated tokens), its
 # cycles
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-125m", 8, 128, 4
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "xlstm-125m", 8, 128, 2
 AL_ARCH, AL_SUPERBLOCKS, CUT_TRAIN_STEPS, AL_CYCLES = "zamba2-2.7b", 3, 2, 3
 AL_STREAMS, AL_SEQ = 8, 8 + 24
 # phases 22-25: the MoE serve path (qwen2-moe-a2.7b at full size) and
@@ -754,8 +772,11 @@ def phase_main_path(dev):
     from repro_torch.kernels import categorical_projection as cp
     from repro_torch.kernels import segment_tree as st
     spec = ExperimentSpec.from_json(SPEC.read_text())
-    spec = dataclasses.replace(spec, variant=get_variant("rainbow"),
-                               mode="concurrent")
+    spec = dataclasses.replace(
+        spec, variant=get_variant("rainbow"), mode="concurrent",
+        env_params={**spec.env_params, "max_steps": MAIN_EPISODE_STEPS},
+        schedule=dataclasses.replace(spec.schedule, cycle_steps=MAIN_STEPS,
+                                     prepopulate=MAIN_PREPOPULATE))
     trainer = ConcurrentTrainer(spec, device="cuda")
     C = spec.schedule.cycle_steps
     per_cycle = C // spec.algo.train_period
@@ -912,10 +933,11 @@ def phase_sequential(dev):
     from repro_torch.configs.dqn_nature import get_variant
     for name in SEQUENTIAL_SPECS:
         spec = _spec_file(name)
-        # the replay's prepopulation cut (the sequential init fills it one
-        # synchronized round after another)
+        # the replay's prepopulation and the cycles cut (the sequential
+        # init fills the replay one synchronized round after another)
         spec = dataclasses.replace(spec, schedule=dataclasses.replace(
-            spec.schedule, prepopulate=RESUME_PREPOPULATE))
+            spec.schedule, cycle_steps=SEQUENTIAL_STEPS,
+            prepopulate=RESUME_PREPOPULATE))
         trainer = build_trainer(spec, device="cuda")
         C = spec.schedule.cycle_steps
         reset_launches()
@@ -1325,7 +1347,33 @@ def _check_trace(path: str, label: str, cycles: int, env_steps: int,
     return rows
 
 
-def phase_launcher(d: str, gpu: str) -> str:
+def _launcher_common(d: str) -> list:
+    """The fleet's launcher arguments in ``d``: the cut spec (written by
+    ``phase_launcher_start``), the checkpoint dir and the metrics file."""
+    ck = os.path.join(d, "run")
+    return ["--spec", os.path.join(d, "spec.json"), "--ckpt-dir", ck,
+            "--metrics-jsonl", os.path.join(ck, "m.jsonl")]
+
+
+def phase_launcher_start(d: str) -> tuple:
+    """Phase 16's first two launcher calls, started in processes of their
+    own (they run beside phase 15, which checks values): the fleet with
+    --trace for 2 cycles and one replica with --trace for 2 cycles."""
+    cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
+    one_ck = os.path.join(d, "replica")
+    single = _rl_train_start(
+        "--spec", _cut_spec_file(_fleet_replica(**cut),
+                                 os.path.join(d, "replica.json")),
+        "--ckpt-dir", one_ck, "--metrics-jsonl",
+        os.path.join(one_ck, "m.jsonl"), "--cycles", "2", "--trace",
+        os.path.join(d, "replica.trace.jsonl"))
+    _cut_spec_file(_fleet_spec(**cut), os.path.join(d, "spec.json"))
+    fleet = _rl_train_start(*_launcher_common(d), "--cycles", "2",
+                            "--trace", os.path.join(d, "fleet.trace.jsonl"))
+    return single, fleet
+
+
+def phase_launcher(d: str, gpu: str, started: tuple) -> str:
     """The launcher end to end on the card, in processes of its own:
     rainbow_fleet.json with its 4 seeds (cut as in phase_resume, its ε
     horizon pinned to the full run's so that --cycles may grow) with
@@ -1333,26 +1381,19 @@ def phase_launcher(d: str, gpu: str) -> str:
     --resume (4 metrics rows a cycle); then a changed spec refused.
     Beside the fleet's first call, in a process of its own, one replica
     (mode concurrent: the launcher's single-carry branch) for 2 cycles
-    with a checkpoint, one metrics row a cycle. Both first calls run
-    with --trace, each trace read back (``_check_trace``). Returns the
-    fleet's checkpoint dir."""
-    cut = dict(cycle_steps=RESUME_STEPS, prepopulate=RESUME_PREPOPULATE)
+    with a checkpoint, one metrics row a cycle. Both first calls
+    (``started``, from ``phase_launcher_start``) run with --trace, each
+    trace read back (``_check_trace``). Returns the fleet's checkpoint
+    dir."""
     one_ck = os.path.join(d, "replica")
     one_jsonl = os.path.join(one_ck, "m.jsonl")
     one_trace = os.path.join(d, "replica.trace.jsonl")
-    single = _rl_train_start(
-        "--spec", _cut_spec_file(_fleet_replica(**cut),
-                                 os.path.join(d, "replica.json")),
-        "--ckpt-dir", one_ck, "--metrics-jsonl", one_jsonl, "--cycles", "2",
-        "--trace", one_trace)
-    ck = os.path.join(d, "run")
-    jsonl = os.path.join(ck, "m.jsonl")
+    common = _launcher_common(d)
+    ck, jsonl = common[3], common[5]
     trace = os.path.join(d, "fleet.trace.jsonl")
-    common = ["--spec", _cut_spec_file(_fleet_spec(**cut),
-                                       os.path.join(d, "spec.json")),
-              "--ckpt-dir", ck, "--metrics-jsonl", jsonl]
+    single, fleet = started
     try:
-        _rl_train(*common, "--cycles", "2", "--trace", trace)
+        _rl_train_wait(fleet)
     finally:
         _rl_train_wait(single)
     _check_trace(one_trace, "one replica (concurrent)", 2,
@@ -3467,22 +3508,77 @@ COST_DECODE_CACHE = SERVE_PROMPT + SERVE_GEN
 EP_GEN = 8
 DRYRUN_ARCHS = ("mistral-nemo-12b", "qwen2-moe-a2.7b")
 DRYRUN_SHAPES = "train_4k,prefill_32k,decode_32k"
+# the 16x16 grid at the reference's default flags: the archs of each of
+# its processes (about equal trace time on one core)
+DRYRUN_GRID = (("xlstm-125m", "whisper-tiny"),
+               ("zamba2-2.7b", "qwen2-moe-a2.7b", "mistral-nemo-12b",
+                "starcoder2-3b"),
+               ("granite-moe-1b-a400m", "llama-3.2-vision-11b",
+                "granite-20b", "granite-3-8b"))
 # the reference's per-device flops for mistral's prefill and decode
 # records (``python -m repro.launch.dryrun --arch mistral-nemo-12b --shape
 # prefill_32k,decode_32k --mesh both --moe-impl expert_parallel`` on a
-# CPU), the ratio the port's may have to them, and the data-parallel
-# ways of each mesh
+# CPU) and the ratio the port's may have to them
 DRYRUN_REFERENCE = {("prefill_32k", "16x16"): 188026854136610.0,
                     ("prefill_32k", "2x16x16"): 94056382257954.0,
                     ("decode_32k", "16x16"): 22942182820.0,
                     ("decode_32k", "2x16x16"): 11471112288.0}
-DRYRUN_RATIO = (0.9, 1.3)
-DRYRUN_DATA_WAYS = {"16x16": 16, "2x16x16": 32}
+DRYRUN_RATIO = {"prefill_32k": (0.7, 0.8), "decode_32k": (0.9, 1.1)}
+# (arch, shape) -> (the reference's per-device flops on 16x16 at its
+# default flags, from ``python -m repro.launch.dryrun --arch all --shape
+# all --mesh single`` on a CPU; the ratio of the port's, the masked
+# attention pairs added back, as PERF.md attributes it)
+DRYRUN_GRID_REFERENCE = {
+    ("mistral-nemo-12b", "train_4k"): (408990672480057.0, 1.025),
+    ("mistral-nemo-12b", "prefill_32k"): (188026854136610.0, 0.991),
+    ("mistral-nemo-12b", "decode_32k"): (22942182820.0, 0.992),
+    ("mistral-nemo-12b", "long_500k"): (1672583929.0, 0.998),
+    ("zamba2-2.7b", "train_4k"): (99866756879786.0, 1.063),
+    ("zamba2-2.7b", "prefill_32k"): (36705558704069.0, 1.027),
+    # 0.985 under torch 2.13
+    ("zamba2-2.7b", "decode_32k"): (4448004373.0, 1.012),
+    ("zamba2-2.7b", "long_500k"): (386174231.0, 0.990),
+    ("granite-moe-1b-a400m", "train_4k"): (24442991049412.0, 10.173),
+    ("granite-moe-1b-a400m", "prefill_32k"): (18225343713122.0, 0.971),
+    ("granite-moe-1b-a400m", "decode_32k"): (11513867053.0, 0.999),
+    ("granite-moe-1b-a400m", "long_500k"): (1256739973.0, 0.999),
+    ("llama-3.2-vision-11b", "train_4k"): (366407396286215.0, 1.017),
+    ("llama-3.2-vision-11b", "prefill_32k"): (171388332694374.0, 0.990),
+    ("llama-3.2-vision-11b", "decode_32k"): (20904964141.0, 0.991),
+    ("llama-3.2-vision-11b", "long_500k"): (1417932907.0, 0.998),
+    # the card's torch (2.11) computes the experts' w_down gradient
+    # whole (all 64 padded experts on every rank): 2.880, where torch
+    # 2.13 gives 2.411 (PERF.md)
+    ("qwen2-moe-a2.7b", "train_4k"): (97808048793576.0, 2.880),
+    ("qwen2-moe-a2.7b", "prefill_32k"): (49134903709602.0, 0.989),
+    ("qwen2-moe-a2.7b", "decode_32k"): (111234104164.0, 1.001),
+    ("qwen2-moe-a2.7b", "long_500k"): (13545811242.0, 1.000),
+    ("xlstm-125m", "train_4k"): (19542648527369.0, 1.033),
+    ("xlstm-125m", "prefill_32k"): (5112214481971.0, 1.000),
+    ("xlstm-125m", "decode_32k"): (634519199.0, 1.243),
+    ("xlstm-125m", "long_500k"): (74003457.0, 1.374),
+    ("granite-20b", "train_4k"): (974804340155745.0, 1.004),
+    ("granite-20b", "prefill_32k"): (413240717637234.0, 0.992),
+    ("granite-20b", "decode_32k"): (50430876804.0, 0.993),
+    ("granite-20b", "long_500k"): (3973229368.0, 0.998),
+    ("granite-3-8b", "train_4k"): (305195275504477.0, 1.008),
+    ("granite-3-8b", "prefill_32k"): (159419277531940.0, 0.990),
+    ("granite-3-8b", "decode_32k"): (19450058319.0, 0.990),
+    ("granite-3-8b", "long_500k"): (1236063889.0, 0.998),
+    ("whisper-tiny", "train_4k"): (12991851971662.0, 1.027),
+    ("whisper-tiny", "prefill_32k"): (15010054939377.0, 0.967),
+    ("whisper-tiny", "decode_32k"): (1825718449.0, 0.967),
+    ("whisper-tiny", "long_500k"): (22616709.0, 0.982),
+    ("starcoder2-3b", "train_4k"): (828125420209239.0, 0.997),
+    ("starcoder2-3b", "prefill_32k"): (915288786027608.0, 0.985),
+    ("starcoder2-3b", "decode_32k"): (111721808462.0, 0.985),
+    ("starcoder2-3b", "long_500k"): (3209011095.0, 0.992),
+}
 # phase 30: the bf16 DQN run's C and prepopulate, the C of its rerun,
 # and pong's episode cap (the eval runs the cap's rounds whatever the
 # episodes do: 500 for pong as committed)
-BF16_STEPS, BF16_PREPOPULATE, BF16_RERUN_STEPS = 64, 256, 24
-BF16_EPISODE_STEPS = 250
+BF16_STEPS, BF16_PREPOPULATE, BF16_RERUN_STEPS = 32, 256, 24
+BF16_EPISODE_STEPS = 125
 
 
 def _random_params(cfg, ec, seed: int, dtype=None):
@@ -3755,13 +3851,18 @@ def _stop(proc: subprocess.Popen) -> None:
 
 
 def phase_dryrun_start(d: str) -> list:
-    """Phase 29 (LLM grid started): the two archs x 3 shapes x both
-    meshes with expert parallelism, one process per arch on one host
-    core each (fake tensors: no card work), while phases 8-28 run."""
-    return [_dryrun_start(f"{d}/{arch}.json", "--arch", arch, "--shape",
-                          DRYRUN_SHAPES, "--mesh", "both", "--moe-impl",
-                          "expert_parallel", env={"OMP_NUM_THREADS": "1"})
-            for arch in DRYRUN_ARCHS]
+    """Phase 29 (LLM grids started): the 16x16 grid at the default flags
+    in len(DRYRUN_GRID) processes, and the two archs x 3 shapes x both
+    meshes with expert parallelism, one process per arch; one host core
+    each (fake tensors: no card work), while phases 8-28 run."""
+    one = {"OMP_NUM_THREADS": "1"}
+    runs = [_dryrun_start(f"{d}/grid{i}.json", "--arch", ",".join(archs),
+                          "--shape", "all", "--mesh", "single", env=one)
+            for i, archs in enumerate(DRYRUN_GRID)]
+    return runs + [_dryrun_start(f"{d}/{arch}.json", "--arch", arch,
+                                 "--shape", DRYRUN_SHAPES, "--mesh", "both",
+                                 "--moe-impl", "expert_parallel", env=one)
+                   for arch in DRYRUN_ARCHS]
 
 
 def phase_dryrun_dqn(d: str) -> tuple:
@@ -3778,39 +3879,53 @@ def phase_dryrun_dqn(d: str) -> tuple:
 
 
 def phase_dryrun_check(runs: list, dqn: tuple) -> None:
-    """Phase 29: the LLM grid's processes (``runs``) and the DQN grid
-    (``dqn``) exit 0; 12 LLM records and 8 DQN records, none failed,
-    each with its per-device costs and dominant term; the PER and C51
-    presets count their kernels."""
+    """Phase 29: the LLM grids' processes (``runs``) and the DQN grid
+    (``dqn``) exit 0; 40 grid records, 12 expert-parallel records and 8
+    DQN records, none failed, each with its per-device costs and
+    dominant term; the grid held to the reference's records; the PER and
+    C51 presets count their kernels."""
     done = []
+    t0 = time.perf_counter()
     for out, proc in runs:
         proc.wait(timeout=600)
         done.append((out, proc.returncode, Path(out + ".log").read_text()))
+    say(f"dry run: waited {time.perf_counter() - t0:.1f} s for the "
+        f"{len(runs)} LLM grid processes")
     records = []
     for out, rc, text in [*done, dqn]:
         tail = "\n".join(text.strip().splitlines()[-3:])
         check(rc == 0, f"dry run {out}: exit {rc}: {text[-2000:]}")
-        records.extend(json.loads(Path(out).read_text()))
+        recs = json.loads(Path(out).read_text())
+        for r in recs:
+            r["grid"] = Path(out).stem.startswith("grid")
+        records.extend(recs)
         say(f"dry run {Path(out).stem}: {tail}")
-    llm = [r for r in records if r["arch"] != "dqn"]
+    grid = [r for r in records if r["grid"]]
+    ep = [r for r in records if r["arch"] != "dqn" and not r["grid"]]
     dqn = [r for r in records if r["arch"] == "dqn"]
-    check(len(llm) == 12 and len(dqn) == 8
-          and not any("error" in r for r in records),
-          f"dry run: {len(llm)} LLM and {len(dqn)} DQN records, errors "
-          f"{[r.get('error') for r in records if 'error' in r]}")
+    errors = [(r["arch"], r["shape"], r["error"]) for r in records
+              if "error" in r]
+    check(len(grid) == 40 and len(ep) == 12 and len(dqn) == 8
+          and not errors,
+          f"dry run: {len(grid)} grid, {len(ep)} expert-parallel and "
+          f"{len(dqn)} DQN records, errors {errors}")
     keys = ("flops_per_device", "bytes_per_device",
             "collective_bytes_per_device", "dominant", "hbm_gb_per_device",
             "model_flops_global", "useful_ratio", "trace_s")
-    for r in llm:
+    for r in grid + ep:
         check(all(k in r for k in keys) and r["flops_per_device"] > 0,
               f"dry run record {r['arch']} {r['shape']} {r['mesh']}: {r}")
-        say(f"dry run {r['arch']} {r['shape']} {r['mesh']}: "
+        say(f"dry run {r['arch']} {r['shape']} {r['mesh']} "
+            f"[{r['variant']}{', ep' if not r['grid'] else ''}]: "
             f"{r['flops_per_device']:.4e} flop/dev, "
             f"{r['bytes_per_device']:.4e} B/dev, coll "
             f"{r['collective_bytes_per_device']:.4e} B/dev, dominant "
             f"{r['dominant']}, {r['hbm_gb_per_device']:.2f} GB/dev, "
-            f"useful {r['useful_ratio']:.3f}, trace {r['trace_s']} s")
-    for r in llm:
+            f"useful {r['useful_ratio']:.3f}, trace {r['trace_s']} s, "
+            f"kernels {r['kernel_calls']}")
+    for r in grid:
+        _grid_against_reference(r)
+    for r in ep:
         if (r["arch"] == "mistral-nemo-12b"
                 and (r["shape"], r["mesh"]) in DRYRUN_REFERENCE):
             _dryrun_against_reference(r)
@@ -3828,39 +3943,42 @@ def phase_dryrun_check(runs: list, dqn: tuple) -> None:
             f" B, kernels {r['kernel_calls']}, {r['trace_s']} s")
 
 
+def _grid_against_reference(r: dict) -> None:
+    """A 16x16 grid record's per-device flops, the masked pairs added
+    back (``dryrun.versus``), within 3% of their attributed ratio to the
+    reference's."""
+    from repro_torch.launch.dryrun import versus
+    ref, want = DRYRUN_GRID_REFERENCE[(r["arch"], r["shape"])]
+    port = r["flops_per_device"]
+    ratio, got = versus(r, ref)
+    check(abs(got / want - 1) <= 0.03,
+          f"dry run {r['arch']} {r['shape']} 16x16: {port:.4e} flop/dev "
+          f"against the reference's {ref:.4e}: {got:.3f}x with the masked "
+          f"pairs added back, {want:.3f}x attributed")
+    say(f"dry run {r['arch']} {r['shape']} 16x16 against the reference: "
+        f"{port:.4e} vs {ref:.4e} flop/dev, {ratio:.3f}x, {got:.3f}x "
+        f"with the masked pairs added back; attributed {want:.3f}x")
+
+
 def _dryrun_against_reference(r: dict) -> None:
     """A mistral record's per-device flops against the reference's:
-    the ratio within DRYRUN_RATIO, and within 3% with the two differences
-    counted out (tests/test_torch_dryrun.py): the port's K and V
-    projections over all 8 KV heads on each of 16 model ranks (XLA's
-    partitioner computes the one head a rank reads), and the reference's
-    attention over every (query, key) pair (the port's flash kernel
-    counts the causal pairs)."""
-    from repro_torch.config import INPUT_SHAPES
-    from repro_torch.configs import get_config
-    cfg, sc = get_config(r["arch"]), INPUT_SHAPES[r["shape"]]
+    the raw ratio within DRYRUN_RATIO, and within 3% with the masked
+    pairs counted out (``dryrun.versus``; tests/test_torch_dryrun.py).
+    A rank computes the K and V projections of only the KV head its
+    query heads read, as XLA's partitioner does."""
+    from repro_torch.launch.dryrun import versus
     ref = DRYRUN_REFERENCE[(r["shape"], r["mesh"])]
-    b_loc = sc.global_batch // DRYRUN_DATA_WAYS[r["mesh"]]
-    tokens = b_loc * (1 if sc.kind == "decode" else sc.seq_len)
-    hd, ways = cfg.resolved_head_dim, 16
-    kv = (2 * 2 * tokens * cfg.d_model * (cfg.n_kv_heads - 1) * hd
-          * cfg.n_layers if cfg.n_kv_heads % ways else 0)
-    S = sc.seq_len
-    masked = (0 if sc.kind == "decode" else 4 * hd * b_loc
-              * (cfg.n_heads // ways) * cfg.n_layers
-              * (S * S - S * (S + 1) // 2))
     port = r["flops_per_device"]
-    ratio, attributed = port / ref, (port - kv + masked) / ref
-    check(DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]
-          and abs(attributed - 1) <= 0.03,
+    ratio, attributed = versus(r, ref)
+    lo, hi = DRYRUN_RATIO[r["shape"]]
+    check(lo <= ratio <= hi and abs(attributed - 1) <= 0.03,
           f"dry run {r['shape']} {r['mesh']}: {port:.4e} flop/dev against "
           f"the reference's {ref:.4e} ({ratio:.3f}x; {attributed:.3f}x with "
-          f"the K/V projections and the masked pairs counted out)")
+          f"the masked pairs counted out)")
     say(f"dry run {r['arch']} {r['shape']} {r['mesh']} against the "
         f"reference: {port:.4e} vs {ref:.4e} flop/dev, {ratio:.3f}x "
-        f"({attributed:.3f}x with the whole K/V projections, "
-        f"{kv:.4e}, and the reference's masked pairs, {masked:.4e}, "
-        f"counted out)")
+        f"({attributed:.3f}x with the reference's masked pairs counted "
+        f"out)")
 
 
 def _bf16_spec(spec):
@@ -4052,7 +4170,7 @@ def main() -> int:
     timed("5 (profile)", phase_profile, trainer.spec, carry)
     timed("6 (against the CPU)", phase_against_cpu)
     # a cycle cut to C=PROFILED_STEPS from the full-size carry: the same
-    # rounds, updates and kernels as C=512, in a tenth of the time
+    # rounds, updates and kernels as C=MAIN_STEPS, in a fraction of the time
     short = dataclasses.replace(trainer.spec, schedule=dataclasses.replace(
         trainer.spec.schedule, cycle_steps=PROFILED_STEPS))
     timed("7 (determinism)", phase_determinism,
@@ -4096,13 +4214,17 @@ def main() -> int:
         "per-stream workspaces cleared")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as sweep_dir:
-        # phase 18's launcher run goes beside phases 15-16, which check
-        # values; it ends before phase 17 measures serving
+        # phase 18's launcher run and phase 16's first two calls go
+        # beside phase 15 (and 18's beside 16), which check values; they
+        # end before phase 17 measures serving
         sweep = timed("18 (sweep launcher, started)", phase_sweep_start,
                       sweep_dir, dev)
-        timed("15 (resume)", phase_resume, dev)
         with tempfile.TemporaryDirectory() as d:
-            catch_dir = timed("16 (launcher)", phase_launcher, d, gpu)
+            started = timed("16 (launcher, started)", phase_launcher_start,
+                            d)
+            timed("15 (resume)", phase_resume, dev)
+            catch_dir = timed("16 (launcher)", phase_launcher, d, gpu,
+                              started)
             sweep_out = timed("18 (sweep launcher, waited for)",
                               _rl_train_wait, sweep)
             timed("17 (policy serving)", phase_policy_serving, dev,

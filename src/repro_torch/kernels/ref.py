@@ -21,6 +21,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import route
+
 NEG_INF = float("-inf")
 
 
@@ -168,7 +170,7 @@ def slstm_cell(state: Tuple[torch.Tensor, ...], wx_t: torch.Tensor,
                        R32).reshape(B, 4 * d)
     pre = wx_t.to(torch.float32) + rec + b32[None]
     z_t, i_t, f_t, o_t = torch.split(pre, d, dim=-1)
-    f_log = F.logsigmoid(f_t)
+    f_log = route.elementwise(F.logsigmoid, f_t)
     m_new = torch.maximum(f_log + m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(f_log + m - m_new)

@@ -25,6 +25,7 @@ collectives.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -32,7 +33,8 @@ import torch
 from repro_torch.kernels.recompute import PlainRecompute, needs_grad
 from repro_torch.roofline import cost
 
-__all__ = ["call", "is_fake", "is_sharded", "sharded"]
+__all__ = ["call", "elementwise", "is_fake", "is_sharded", "sharded",
+           "steps"]
 
 Work = Tuple[float, float]
 
@@ -42,13 +44,20 @@ def is_fake(t: torch.Tensor) -> bool:
     return _is_fake(t)
 
 
-def is_sharded(*tensors) -> bool:
-    """Whether any of ``tensors`` is a DTensor."""
+@functools.lru_cache(maxsize=1)
+def _dtensor_type():
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:
-        return False
-    return any(isinstance(t, DTensor) for t in tensors)
+        return None
+    return DTensor
+
+
+def is_sharded(*tensors) -> bool:
+    """Whether any of ``tensors`` is a DTensor."""
+    dtensor = _dtensor_type()
+    return dtensor is not None and any(isinstance(t, dtensor)
+                                       for t in tensors)
 
 
 def call(name: str, work: Callable[[], Work], launch: Callable,
@@ -119,7 +128,8 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
     where the ways are a multiple of it instead, each rank's query heads
     all fall in one group, so that argument stays whole and ``fn`` gets
     the rank's one KV head (its gradient a partial sum over the ranks
-    that share the head)."""
+    that share the head). So is the gradient of any argument that is
+    whole on a mesh dim over which the outputs are sharded."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     lead = args[0]
@@ -164,18 +174,17 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
                  if isinstance(a, torch.Tensor)
                  and not isinstance(a, DTensor) and lab is not None else a
                  for a, lab in zip(args, labels))
-    local, grad_pl = fn, None
+    # an argument whole on a mesh dim whose ranks each compute their own
+    # shard of the outputs gets a partial sum of its gradient there
+    grad_pl = tuple(
+        None if lab is None else
+        [Partial() if n is not None and p == Replicate() else p
+         for n, p in zip(chosen, in_pl[j])]
+        for j, lab in enumerate(labels))
+    local = fn
     if narrow:
-        coord = mesh.get_coordinate()
-        rank = 0                       # this rank's index among the h ways
-        for i, n in enumerate(chosen):
-            if n == "h":
-                rank = rank * mesh.size(i) + coord[i]
-        grad_pl = tuple(
-            None if lab is None else
-            [Partial() if j in narrow and n == "h" else p
-             for n, p in zip(chosen, in_pl[j])]
-            for j, lab in enumerate(labels))
+        # this rank's index among the h ways
+        rank = mesh_rank(mesh, [i for i, n in enumerate(chosen) if n == "h"])
 
         def local(*xs):
             xs = list(xs)
@@ -187,3 +196,69 @@ def sharded(fn: Callable, labels: Sequence[Optional[Tuple]],
     return local_map(local, out_placements=out_pl, in_placements=in_pl,
                      in_grad_placements=grad_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def mesh_rank(mesh, dims: Sequence[int]) -> int:
+    """This rank's index among the ranks of ``mesh``'s dims ``dims``, the
+    first major: its shard of a dim DTensor splits over them."""
+    coord = mesh.get_coordinate()
+    rank = 0
+    for i in dims:
+        rank = rank * mesh.size(i) + coord[i]
+    return rank
+
+
+class SumGradOverRanks(torch.autograd.Function):
+    """The identity forward; the backward sums the gradient over the
+    process groups ``groups`` ((mesh, dim) pairs). An input that is whole
+    on those ranks, each of which reads its own part of it, gets its
+    whole gradient on every rank, where a partial sum would reach the
+    product before it, which DTensor then runs whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, groups) -> torch.Tensor:
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        for group in ctx.groups:
+            g = funcol.wait_tensor(funcol.all_reduce(g, "sum", group))
+        return g, None
+
+
+def elementwise(fn: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``: on a DTensor, on each rank's
+    shard (a partial sum made whole first), for the ops DTensor has no
+    strategy for (``log_sigmoid``); on anything else, as it is."""
+    if not is_sharded(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(fn, out_placements=pl, in_placements=(pl,),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def steps(step: Callable, carry, n: int):
+    """``([y_0, ..., y_{n-1}], carry)`` of ``y_i, carry = step(i, carry)``
+    for i < n, a loop whose steps run the same ops on the same shapes
+    (the chunks of a scan). On fake tensors with no gradient under the
+    cost counter (the dry run's prefill), steps 0 and 1 run and the
+    counter counts step 1 n - 2 more times, the outputs y that those
+    steps would keep alive included (``CostCounter.repeat``); their y
+    are step 1's. The counts then equal the whole loop's."""
+    counter = cost.active()
+    once = (counter is not None and n > 2 and not torch.is_grad_enabled()
+            and any(is_fake(t) for t in cost._tensors(carry)))
+    ys = []
+    for i in range(2 if once else n):
+        mark = counter.mark() if once and i == 1 else None
+        y, carry = step(i, carry)
+        ys.append(y)
+    if once:
+        counter.repeat(mark, n - 2, kept=ys[-1])
+        ys += ys[-1:] * (n - 2)
+    return ys, carry

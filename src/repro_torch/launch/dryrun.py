@@ -23,6 +23,11 @@ Usage:
       --shape all --mesh both --out results/dryrun_torch.json
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch dqn \
       --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.dryrun \
+      --out results/dryrun_torch.json --against results/dryrun.json
+
+``--against`` prints the records of ``--out`` against the reference's
+records of the same flags (``python -m repro.launch.dryrun --out``).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -239,6 +244,52 @@ def run_dqn_variant(variant_name: str, device: str = "cuda",
     return rec
 
 
+MESH_DATA_WAYS = {"16x16": 16, "2x16x16": 32}
+
+
+def versus(rec: Dict[str, Any], ref_flops: float,
+           ec: ExecConfig = ExecConfig(remat=True)) -> Tuple[float, float]:
+    """(ratio, adjusted): a port record's per-device flops over the
+    reference's ``ref_flops`` for the same (arch, shape, mesh) and
+    flags ``ec``, as they are and with the masked attention pairs the
+    reference counts (``analysis.masked_pairs``) added to the port's."""
+    from repro_torch.roofline.analysis import masked_pairs
+    m = masked_pairs(get_config(rec["arch"]), INPUT_SHAPES[rec["shape"]],
+                     MESH_DATA_WAYS[rec["mesh"]],
+                     heads_sharded=not ec.kv_seq_shard, remat=ec.remat)
+    port = rec["flops_per_device"]
+    return port / ref_flops, (port + m) / ref_flops
+
+
+def against(port: list, reference: list, ec: ExecConfig) -> str:
+    """A markdown table of the port's records against the reference's
+    (``python -m repro.launch.dryrun`` records of the same flags): per
+    (arch, shape, mesh) the per-device flops of each, their ratio and
+    the ratio with the masked pairs added back (``versus``), and the
+    collective bytes of each; a failed record shows its error."""
+    ref = {(r["arch"], r["shape"], r["mesh"]): r for r in reference}
+    rows = ["| arch | shape | mesh | port flop/dev | ref flop/dev | ratio "
+            "| + masked | port coll B | ref coll B |",
+            "|---|---|---|---|---|---|---|---|---|"]
+    for p in port:
+        key = (p["arch"], p["shape"], p["mesh"])
+        r = ref.get(key, {"error": "no record"})
+        if "error" in p or "error" in r:
+            err = lambda x: ("fails: " + x["error"].splitlines()[0][:60]
+                             if "error" in x else "%.4e" % x[
+                                 "flops_per_device"])  # noqa: E731
+            rows.append(f"| {' | '.join(key)} | {err(p)} | {err(r)} "
+                        f"| | | | |")
+            continue
+        pf, rf = p["flops_per_device"], r["flops_per_device"]
+        ratio, adjusted = versus(p, rf, ec)
+        rows.append(f"| {' | '.join(key)} | {pf:.4e} | {rf:.4e} "
+                    f"| {ratio:.3f} | {adjusted:.3f} "
+                    f"| {p['collective_bytes_per_device']:.3e} "
+                    f"| {r['collective_bytes_per_device']:.3e} |")
+    return "\n".join(rows)
+
+
 def _load(path: str) -> list:
     if os.path.exists(path):
         with open(path) as f:
@@ -318,7 +369,18 @@ def main(argv=None) -> int:
                     choices=["pixels", "vector"],
                     help="(--arch dqn) observation mode of the grid")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--against", default=None,
+                    help="the reference's records (python -m "
+                         "repro.launch.dryrun --out) of the same flags: "
+                         "print --out's records against them, trace "
+                         "nothing")
     args = ap.parse_args(argv)
+    ec = ExecConfig(remat=not args.no_remat, fsdp=args.fsdp,
+                    moe_impl=args.moe_impl, kv_seq_shard=args.kv_seq_shard,
+                    mlstm_chunked=not args.mlstm_recurrent)
+    if args.against:
+        print(against(_load(args.out), _load(args.against), ec))
+        return 0
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     if args.arch == "dqn":
         return _main_dqn(args)
@@ -328,9 +390,6 @@ def main(argv=None) -> int:
               else args.shape.split(","))
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
-    ec = ExecConfig(remat=not args.no_remat, fsdp=args.fsdp,
-                    moe_impl=args.moe_impl, kv_seq_shard=args.kv_seq_shard,
-                    mlstm_chunked=not args.mlstm_recurrent)
     tc = TrainConfig(remat=not args.no_remat)
     results = _load(args.out)
     done = {(r["arch"], r["shape"], r["mesh"], r.get("variant", "baseline"))

@@ -20,11 +20,10 @@ import torch
 
 from repro_torch.config import ExecConfig, ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.models.layers import softmax_cross_entropy, whole_along
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import apply_updates, value_and_grad
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.sharding.rules import whole_along
 
 
 def make_optimizer(tc: TrainConfig, total_steps: int = 10_000):

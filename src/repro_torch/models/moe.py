@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.compat import current_mesh
 from repro_torch.config import ExecConfig, ModelConfig, MoEConfig
+from repro_torch.kernels import route
 from repro_torch.models import params as P
 
 
@@ -78,9 +79,12 @@ def moe_param_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     return spec
 
 
-def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig):
+def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig,
+            over_ranks=None):
     """x32: (T, d) float32 -> top-k weights (T, k) float32, expert ids
-    (T, k) int64 and the auxiliary loss."""
+    (T, k) int64 and the auxiliary loss. ``over_ranks`` averages a
+    statistic of these T tokens over the ranks that hold the other
+    tokens of the batch (``_sharded_router``); none by default."""
     logits = x32 @ w.to(torch.float32)                       # (T, E_logical)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
@@ -90,10 +94,47 @@ def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig):
     counts = (top_e.reshape(-1, 1) == ids).sum(0).to(torch.float32)
     f_e = counts / (T * m.top_k)
     p_e = torch.mean(probs, dim=0)
-    lb_loss = m.n_experts * torch.sum(f_e * p_e)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if over_ranks is not None:
+        f_e, p_e, z_loss = (over_ranks(t) for t in (f_e, p_e, z_loss))
+    lb_loss = m.n_experts * torch.sum(f_e * p_e)
     aux = m.load_balance_loss * lb_loss + m.router_z_loss * z_loss
     return top_w, top_e, aux
+
+
+def _sharded_router(x: torch.Tensor, w: torch.Tensor, m: MoEConfig):
+    """``_router`` on DTensors, x (B, S, d): each rank routes the tokens
+    of its batch rows, and the auxiliary loss's token means are averaged
+    over the batch's ranks. DTensor alone would shard the flattened
+    tokens of the gradient over more ranks than the batch rows (on
+    2x16x16), which then do not fold back into rows. Returns top-k
+    weights and ids (B, S, k) and aux."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    whole = [Replicate()] * mesh.ndim
+    bdims = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    xpl = [Shard(0) if i in bdims else Replicate() for i in range(mesh.ndim)]
+    wgrad = [Partial() if i in bdims else Replicate()
+             for i in range(mesh.ndim)]
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, whole, run_check=False)
+
+    def over_ranks(t):
+        for i in bdims:
+            t = _MeanOverRanks.apply(t, (mesh, i), mesh.size(i))
+        return t
+
+    def local(xl, wl):
+        b = xl.shape[0]
+        top_w, top_e, aux = _router(xl.reshape(b * S, d), wl, m, over_ranks)
+        return top_w.reshape(b, S, -1), top_e.reshape(b, S, -1), aux
+
+    return local_map(local, out_placements=(xpl, xpl, whole),
+                     in_placements=(xpl, whole),
+                     in_grad_placements=(xpl, wgrad), device_mesh=mesh,
+                     redistribute_inputs=True)(x.to(torch.float32), w)
 
 
 def capacity(m: MoEConfig, S: int) -> int:
@@ -107,7 +148,13 @@ def _routes(te: torch.Tensor, E: int, cap: int):
     """te: (B, S, k) expert ids -> (src, dst). ``src`` (B, E cap): the
     token (0..S-1) that fills each buffer slot (expert-major), S where
     the slot stays empty; ``dst`` (B, S k): the slot e cap + c each
-    assignment reads its result from, E cap where it was dropped."""
+    assignment reads its result from, E cap where it was dropped. On a
+    DTensor each rank routes its batch rows (``route.sharded``): the
+    slot table is built in place."""
+    if route.is_sharded(te):
+        return route.sharded(lambda t: _routes(t, E, cap),
+                             (("b", None, None),),
+                             (("b", None), ("b", None)), te)
     B, S, k = te.shape
     N = S * k
     e = te.reshape(B, N)
@@ -128,14 +175,46 @@ def _routes(te: torch.Tensor, E: int, cap: int):
 def _pick(src: torch.Tensor, idx: torch.Tensor, grad: bool) -> torch.Tensor:
     """Rows ``idx`` (B, m) of ``src`` (B, n, d), a zero row where idx is
     n: a gather, or, where a gradient flows, a one-hot product (the
-    module docstring)."""
+    module docstring). On DTensors each rank picks from its batch rows
+    (``route.sharded``), the one-hot product over its share of d on the
+    mesh dims that do not shard the batch."""
     B, n, d = src.shape
+    if grad and route.is_sharded(src, idx):
+        return _sharded_onehot_pick(src, idx)
     if grad:
         ids = torch.arange(n, device=src.device)
         return torch.matmul((idx[..., None] == ids).to(src.dtype), src)
+    if route.is_sharded(src, idx):
+        return route.sharded(lambda s, i: _pick(s, i, grad),
+                             (("b", None, None), ("b", None)),
+                             ("b", None, None), src, idx)
     rows = torch.cat([src.reshape(B * n, d), src.new_zeros(1, d)])
     base = torch.arange(B, device=src.device)[:, None] * n
     return rows[torch.where(idx < n, idx + base, B * n)]
+
+
+def _sharded_onehot_pick(src: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """``_pick``'s one-hot product on DTensors: src (B, n, d) keeps its
+    batch sharding and is split along d (a local slice) on the other mesh
+    dims where d divides, so that no rank computes another's columns."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (src if isinstance(src, DTensor) else idx).device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    pl, ways = [], 1
+    for i, p in enumerate(src.placements):
+        if p == Shard(0):
+            pl.append(p)
+        elif src.shape[2] % (ways * mesh.size(i)) == 0:
+            ways *= mesh.size(i)
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    return route.sharded(lambda s, i: _pick(s, i, True),
+                         (("b", None, "d"), ("b", None)), ("b", None, "d"),
+                         src.redistribute(mesh, pl), idx)
 
 
 def _experts_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
@@ -184,11 +263,14 @@ def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
 
 def _dense_moe(p, xt: torch.Tensor, top_w: torch.Tensor,
                top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
-    """The oracle: every expert on every token, weighted by the router."""
+    """The oracle: every expert on every token, weighted by the router.
+    On DTensors xt is broadcast over the experts explicitly, as
+    ``matmul`` broadcasts it, into products DTensor can place."""
     dt = xt.dtype
     E = padded_experts(m)
-    g = torch.matmul(xt, p["w_gate"].to(dt))                # (E, T, f)
-    u = torch.matmul(xt, p["w_up"].to(dt))
+    xe = xt.expand(E, *xt.shape) if route.is_sharded(xt) else xt
+    g = torch.matmul(xe, p["w_gate"].to(dt))                # (E, T, f)
+    u = torch.matmul(xe, p["w_up"].to(dt))
     y_all = torch.matmul(F.silu(g) * u, p["w_down"].to(dt))  # (E, T, d)
     onehot = F.one_hot(top_e, E).to(dt)                     # (T, k, E)
     w_e = torch.einsum("tk,tke->te", top_w.to(dt), onehot)
@@ -325,7 +407,11 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
         y, aux = _expert_parallel_moe(p, x, m, mesh)
         y = y.reshape(B * S, d)
     else:
-        top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
+        if route.is_sharded(x):
+            top_w, top_e, aux = _sharded_router(x, p["router"], m)
+            top_w, top_e = top_w.reshape(B * S, -1), top_e.reshape(B * S, -1)
+        else:
+            top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
         if ec.moe_impl == "dense":
             y = _dense_moe(p, xt, top_w, top_e, m)
         else:

@@ -61,8 +61,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
-from repro_torch.models.layers import (gelu_mlp, linear, rms_norm, rope_tables,
-                                       rotate, round_up, swiglu)
+from repro_torch.models.layers import (gelu_mlp, linear, merge_heads,
+                                       rms_norm, rope_tables, rotate,
+                                       round_up, split_heads, swiglu)
 
 Tree = Any
 DEFAULT_EXEC = ExecConfig()
@@ -207,7 +208,7 @@ def abstract_params(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
 # ---------------------------------------------------------------------------
 
 def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n, hd)
+    return split_heads(x, n)
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -246,8 +247,8 @@ def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
     hd = cfg.resolved_head_dim
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
     q = _heads(linear(h, bp["wq"].to(h.dtype)), cfg.n_heads, hd)
-    k = _heads(linear(h, bp["wk"].to(h.dtype)), cfg.n_kv_heads, hd)
-    v = _heads(linear(h, bp["wv"].to(h.dtype)), cfg.n_kv_heads, hd)
+    k = A.project_kv(h, bp["wk"], cfg.n_kv_heads, hd, bp["wq"])
+    v = A.project_kv(h, bp["wv"], cfg.n_kv_heads, hd, bp["wq"])
     return q, k, v
 
 
@@ -264,7 +265,7 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
         o = A.causal_attention(q, k, v, window=window)
     else:
         o = A.bidirectional_attention(q, k, v)
-    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+    o = merge_heads(o)
     out = linear(o, bp["wo"].to(o.dtype))
     if return_kv:
         return out, k, v
@@ -278,16 +279,16 @@ def _cross_query(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _memory_kv(bp, memory: torch.Tensor, cfg: ModelConfig):
-    """A CROSS_ATTN block's K and V of the memory, (B, M, Hkv, hd) each."""
+    """A CROSS_ATTN block's K and V of the memory, (B, M, Hkv, hd) each
+    (``A.project_kv``'s heads on DTensors)."""
     hd = cfg.resolved_head_dim
-    k = linear(memory, bp["wk_x"].to(memory.dtype))
-    v = linear(memory, bp["wv_x"].to(memory.dtype))
-    return _heads(k, cfg.n_kv_heads, hd), _heads(v, cfg.n_kv_heads, hd)
+    return tuple(A.project_kv(memory, bp[w], cfg.n_kv_heads, hd, bp["wq_x"])
+                 for w in ("wk_x", "wv_x"))
 
 
 def _cross_out(bp, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The cross-attention's output projection, tanh-gated for the VLM."""
-    o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+    o = merge_heads(o)
     o = linear(o, bp["wo_x"].to(o.dtype))
     if "gate_x" in bp:
         o = o * torch.tanh(bp["gate_x"].to(o.dtype))
@@ -316,6 +317,7 @@ def _apply_block(kind: str, bp, x: torch.Tensor, rope, memory,
     if kind in ATTN_KINDS:
         if collect:
             h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
+            k, v = (A.whole_kv(t, cfg.n_kv_heads) for t in (k, v))
             entry = {"k": k.transpose(1, 2).to(ec.cdtype),
                      "v": v.transpose(1, 2).to(ec.cdtype)}
             x = x + h
@@ -325,6 +327,7 @@ def _apply_block(kind: str, bp, x: torch.Tensor, rope, memory,
             h, mk, mv = _cross_attention(bp, x, memory, cfg)
             x = x + h
             if collect:
+                mk, mv = (A.whole_kv(t, cfg.n_kv_heads) for t in (mk, mv))
                 entry["ck"] = mk.transpose(1, 2).to(ec.cdtype)
                 entry["cv"] = mv.transpose(1, 2).to(ec.cdtype)
         h, aux = _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
@@ -405,6 +408,8 @@ def _sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
     kpl = [p if p == Shard(0) and t != Shard(0) else Replicate()
            for p, t in zip(tokens.placements, tpl)]
     opl = [Partial() if t == Shard(0) else p for p, t in zip(kpl, tpl)]
+    # the table's gradient: a partial sum over the ranks of the tokens
+    gpl = [Partial() if k == Shard(0) else t for t, k in zip(tpl, kpl)]
     _, offset = local_offset(table.shape, mesh, tpl)
 
     def lookup(tab, tok):
@@ -416,7 +421,7 @@ def _sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
         return tab.to(dtype)[idx.clamp(0, tab.shape[0] - 1)] * held.to(dtype)
 
     return local_map(lookup, out_placements=opl, in_placements=(tpl, kpl),
-                     in_grad_placements=(tpl, kpl), device_mesh=mesh,
+                     in_grad_placements=(gpl, kpl), device_mesh=mesh,
                      redistribute_inputs=True)(table, tokens)
 
 
@@ -586,10 +591,11 @@ def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, at: Dict,
         if at["rope"] is not None:
             q = rotate(q, at["rope"])
             k = rotate(k, at["rope"])
-        kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"], k, v,
-                               at["slot"])
+        kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"],
+                               A.whole_kv(k, cfg.n_kv_heads),
+                               A.whole_kv(v, cfg.n_kv_heads), at["slot"])
         o = A.decode_attention(q, kc, vc, at["cache_len"])
-        o = o.reshape(*o.shape[:2], cfg.n_heads * cfg.resolved_head_dim)
+        o = merge_heads(o)
         x = x + linear(o, bp["wo"].to(o.dtype))
         if kind == CROSS_ATTN:
             o = A.decode_attention(_cross_query(bp, x, cfg),
@@ -670,7 +676,8 @@ def prefill_cross_cache(cfg: ModelConfig, ec: ExecConfig, params: Tree,
         name = f"b{j}_{kind}"
         slot = cache["layers"][name]
         for i in range(cfg.n_superblocks):
-            k, v = _memory_kv(_layer(params["layers"][name], i), memory, cfg)
+            k, v = (A.whole_kv(t, cfg.n_kv_heads) for t in _memory_kv(
+                _layer(params["layers"][name], i), memory, cfg))
             slot["ck"][i].copy_(k.transpose(1, 2))
             slot["cv"][i].copy_(v.transpose(1, 2))
     return cache

@@ -20,16 +20,18 @@ mLSTM stabilized recurrence (per head, head dim P):
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, route
 from repro_torch.kernels.ref import slstm_cell
 from repro_torch.models import params as P
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import (linear, rms_norm, split_heads,
+                                       whole_along)
 from repro_torch.models.ssm import _causal_conv
 
 State = Tuple[torch.Tensor, ...]
@@ -73,17 +75,19 @@ def _mlstm_qkv_gates(p, x: torch.Tensor, cfg: ModelConfig):
     input z and the conv's input xm (both (B, S, d_inner))."""
     d_inner, H, Pd = mlstm_dims(cfg)
     dt = x.dtype
-    up = torch.matmul(x, p["up_proj"].to(dt))
+    # the columns of xm and z whole on every rank before the split, as in
+    # ``_slstm_ffn``
+    up = whole_along(linear(x, p["up_proj"].to(dt)), -1)
     xm, z = torch.split(up, d_inner, dim=-1)
     xc = F.silu(_causal_conv(xm, p["conv_w"], p["conv_b"]))
-    q = torch.matmul(xc, p["w_q"].to(dt))
-    k = torch.matmul(xc, p["w_k"].to(dt)) * (Pd ** -0.5)
-    v = torch.matmul(xm, p["w_v"].to(dt))
-    gates = torch.matmul(xc, p["w_gates"].to(dt))
+    q = linear(xc, p["w_q"].to(dt))
+    k = linear(xc, p["w_k"].to(dt)) * (Pd ** -0.5)
+    v = linear(xm, p["w_v"].to(dt))
+    gates = linear(xc, p["w_gates"].to(dt))
     gates = gates.to(torch.float32) + p["b_gates"].to(torch.float32)
     i_t, f_t = torch.split(gates, H, dim=-1)
-    shp = lambda t: t.reshape(*t.shape[:2], H, Pd)      # noqa: E731
-    return shp(q), shp(k), shp(v), i_t, f_t, z, xm
+    return (split_heads(q, H), split_heads(k, H), split_heads(v, H), i_t,
+            f_t, z, xm)
 
 
 def _mlstm_step(state: State, q, k, v, i_t, f_t):
@@ -91,7 +95,7 @@ def _mlstm_step(state: State, q, k, v, i_t, f_t):
     C, n, m = state
     f32 = torch.float32
     k32, q32 = k.to(f32), q.to(f32)
-    f_log = F.logsigmoid(f_t)
+    f_log = route.elementwise(F.logsigmoid, f_t)
     m_new = torch.maximum(f_log + m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(f_log + m - m_new)
@@ -110,7 +114,10 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
     the intra-chunk terms are an (L, L) decay-masked attention, and the
     carried (C, n, m) state is touched once per chunk.
 
-    q/k/v: (B, S, H, P); i_t/f_t: (B, S, H) raw gate pre-activations."""
+    q/k/v: (B, S, H, P); i_t/f_t: (B, S, H) raw gate pre-activations.
+    On DTensors ``_sharded_chunked``."""
+    if route.is_sharded(q, k, v, i_t, f_t, *state):
+        return _sharded_chunked(q, k, v, i_t, f_t, state, chunk)
     B, S, H, Pd = q.shape
     L = min(chunk, S)
     assert S % L == 0, (S, L)
@@ -120,13 +127,13 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
     lower = ii[None, :] <= ii[:, None]                      # (L,L): j <= i
     tri = lower[None, :, :, None]                           # (1,L,L,1)
     ones = lower.to(f32)
-    C, n, m0 = state
-    hs = []
-    for c in range(S // L):
+
+    def chunk_step(c, carry):
+        C, n, m0 = carry
         sl = slice(c * L, (c + 1) * L)
         qk_, kk_, vk_, ik_, fk_ = q[:, sl], k[:, sl], v[:, sl], \
             i_t[:, sl], f_t[:, sl]
-        f_log = F.logsigmoid(fk_)                           # (B,L,H)
+        f_log = route.elementwise(F.logsigmoid, fk_)        # (B,L,H)
         cumF = torch.einsum("ij,bjh->bih", ones, f_log)
         M = torch.cummax(ik_ - cumF, dim=1).values
         m = cumF + torch.maximum(m0[:, None, :], M)         # (B,L,H)
@@ -139,15 +146,83 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
         wc = torch.exp(cumF + m0[:, None, :] - m)           # (B,L,H)
         num = num + torch.einsum("bihp,bhpr->bihr", qk_, C) * wc[..., None]
         den = den + torch.einsum("bihp,bhp->bih", qk_, n) * wc
-        hs.append(num / torch.clamp(torch.abs(den), min=1.0)[..., None])
+        h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
         total, m_end = cumF[:, -1], m[:, -1]                # (B,H)
         w_prev = torch.exp(total + m0 - m_end)
         w_in = torch.exp(total[:, None, :] - cumF + ik_ - m_end[:, None, :])
         C = C * w_prev[..., None, None] + torch.einsum(
             "bjhp,bjhr->bhpr", w_in[..., None] * kk_, vk_)
         n = n * w_prev[..., None] + torch.einsum("bjh,bjhp->bhp", w_in, kk_)
-        m0 = m_end
-    return torch.cat(hs, dim=1), (C, n, m0)
+        return h, (C, n, m_end)
+
+    hs, state = route.steps(chunk_step, tuple(state), S // L)
+    return torch.cat(hs, dim=1), state
+
+
+def _sharded_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
+    """``mlstm_chunked`` on DTensors, each rank on its batch rows. Where
+    the ``model`` ranks are a multiple n of the H heads and split the
+    head dim P into r = n / H slices (xlstm-125m: 4 heads of 384 on 16
+    ranks), as the reference's partitioner splits the heads' columns, a
+    rank runs the recurrence of one head for one slice of v's P: q, k,
+    the gates and n are the head's, C the columns of its slice. hs then
+    comes back as (B, S, n, P / r), sharded n ways: the rank's columns
+    of (B, S, H P). The state is gathered whole. Elsewhere every rank
+    runs all heads: hs (B, S, H, P)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    H, Pd = q.shape[2], q.shape[3]
+    mesh = next(t for t in (q, k, v, i_t, f_t, *state)
+                if isinstance(t, DTensor)).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    q, k, v, i_t, f_t, *state = (
+        t if isinstance(t, DTensor)
+        else DTensor.from_local(t, mesh, whole, run_check=False)
+        for t in (q, k, v, i_t, f_t, *state))
+    batch = [i for i, p in enumerate(q.placements) if p == Shard(0)]
+    rest = [i for i in range(mesh.ndim) if i not in batch]
+    n = math.prod(mesh.size(i) for i in rest)
+    r = n // H if n % H == 0 else 0
+    if not rest or not r or Pd % r:
+        x4, x3 = ("b", None, None, None), ("b", None, None)
+        hs, *st = route.sharded(
+            lambda *a: _flat_chunked(*a, chunk=chunk),
+            (x4, x4, x4, x3, x3, x4, x3, ("b", None)),
+            (x4, x4, x3, ("b", None)), q, k, v, i_t, f_t, *state)
+        return hs, tuple(st)
+    pv = Pd // r
+    xpl = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
+    split = [Shard(0) if i in batch else Shard(1) for i in range(mesh.ndim)]
+    hpl = [Shard(0) if i in batch else Shard(2) for i in range(mesh.ndim)]
+    grad = [Shard(0) if i in batch else Partial() for i in range(mesh.ndim)]
+
+    def local(q, k, v, i_t, f_t, C, n_, m):
+        j = route.mesh_rank(mesh, rest)
+        h, c = j // r, j % r * pv
+        one = lambda t: t.narrow(2, h, 1)                  # noqa: E731
+        hs, (C, n_, m) = mlstm_chunked(
+            one(q), one(k), one(v).narrow(3, c, pv), one(i_t), one(f_t),
+            (C.narrow(1, h, 1).narrow(3, c, pv), n_.narrow(1, h, 1),
+             m.narrow(1, h, 1)), chunk)
+        return hs, C, n_, m
+
+    hs, C, n_, m = local_map(
+        local, out_placements=(hpl, split, split, split),
+        in_placements=(xpl,) * 8, in_grad_placements=(grad,) * 8,
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, i_t, f_t,
+                                                    *state)
+    # the state whole: each head's r slices of C side by side, n and m
+    # once per head
+    C = whole_along(C, 1)
+    B = C.shape[0]
+    C = C.reshape(B, H, r, Pd, pv).permute(0, 1, 3, 2, 4).reshape(
+        B, H, Pd, Pd)
+    return hs, (C, whole_along(n_, 1)[:, ::r], whole_along(m, 1)[:, ::r])
+
+
+def _flat_chunked(q, k, v, i_t, f_t, C, n, m, chunk: int):
+    hs, state = mlstm_chunked(q, k, v, i_t, f_t, (C, n, m), chunk)
+    return (hs, *state)
 
 
 def _mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
@@ -172,7 +247,7 @@ def _mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
     h = hh.reshape(B, S, d_inner).to(x.dtype)
     h = rms_norm(h, p["norm"], cfg.norm_eps)
     h = h * F.silu(z)
-    return torch.matmul(h, p["down_proj"].to(x.dtype)), state, xm
+    return linear(h, p["down_proj"].to(x.dtype)), state, xm
 
 
 def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
@@ -206,14 +281,14 @@ def mlstm_decode_step(p, x: torch.Tensor, cache, cfg: ModelConfig):
     modified."""
     d_inner, H, Pd = mlstm_dims(cfg)
     dt = x.dtype
-    up = torch.matmul(x, p["up_proj"].to(dt))
+    up = whole_along(linear(x, p["up_proj"].to(dt)), -1)
     xm, z = torch.split(up, d_inner, dim=-1)                # (B,1,e)
     window = torch.cat([cache["conv"], xm], dim=1)
     w = p["conv_w"].to(dt)
     xc = F.silu(torch.einsum("bwc,wc->bc", window, w) + p["conv_b"].to(dt))
-    q = torch.matmul(xc, p["w_q"].to(dt)).reshape(-1, H, Pd)
-    k = torch.matmul(xc, p["w_k"].to(dt)).reshape(-1, H, Pd) * (Pd ** -0.5)
-    v = torch.matmul(xm[:, 0], p["w_v"].to(dt)).reshape(-1, H, Pd)
+    q = split_heads(torch.matmul(xc, p["w_q"].to(dt)), H)
+    k = split_heads(torch.matmul(xc, p["w_k"].to(dt)), H) * (Pd ** -0.5)
+    v = split_heads(torch.matmul(xm[:, 0], p["w_v"].to(dt)), H)
     gates = torch.matmul(xc, p["w_gates"].to(dt))
     gates = gates.to(torch.float32) + p["b_gates"].to(torch.float32)
     i_t, f_t = torch.split(gates, H, dim=-1)
@@ -221,7 +296,7 @@ def mlstm_decode_step(p, x: torch.Tensor, cache, cfg: ModelConfig):
     h = h.reshape(-1, 1, d_inner).to(dt)
     h = rms_norm(h, p["norm"], cfg.norm_eps)
     h = h * F.silu(z)
-    y = torch.matmul(h, p["down_proj"].to(dt))
+    y = linear(h, p["down_proj"].to(dt))
     return y, {"state": state, "conv": window[:, 1:]}
 
 
@@ -255,19 +330,22 @@ def _slstm_step(p, state: State, wx: torch.Tensor,
 
 
 def _slstm_ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The post-recurrence norm and gated GELU (tanh form) FFN."""
+    """The post-recurrence norm and gated GELU (tanh form) FFN. On
+    DTensors the up projection's columns, sharded as one block that the
+    gate and up halves split at a rank boundary, are gathered whole
+    before the split, as the reference's partitioner does."""
     h = rms_norm(h, p["norm"], cfg.norm_eps)
-    up = torch.matmul(h, p["ffn_up"].to(h.dtype))
+    up = whole_along(linear(h, p["ffn_up"].to(h.dtype)), -1)
     g, u = torch.chunk(up, 2, dim=-1)
-    return torch.matmul(F.gelu(g, approximate="tanh") * u,
-                        p["ffn_down"].to(h.dtype))
+    return linear(F.gelu(g, approximate="tanh") * u,
+                  p["ffn_down"].to(h.dtype))
 
 
 def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None):
     """x: (B, S, d) -> (y, final state), the recurrence through the
     ``slstm_scan`` op."""
     B, S, d = x.shape
-    wx = torch.matmul(x, p["w_in"].to(x.dtype))
+    wx = linear(x, p["w_in"].to(x.dtype))
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
     hs, state = ops.slstm_scan(wx, p["r"], p["b"], state, cfg.n_heads)
@@ -284,6 +362,6 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device) -> State:
 
 def slstm_decode_step(p, x: torch.Tensor, state: State, cfg: ModelConfig):
     """x: (B, 1, d). Returns (y, new state)."""
-    wx = torch.matmul(x, p["w_in"].to(x.dtype))[:, 0]
+    wx = linear(x, p["w_in"].to(x.dtype))[:, 0]
     state = _slstm_step(p, state, wx, cfg)
     return _slstm_ffn(p, state[2][:, None].to(x.dtype), cfg), state

@@ -106,3 +106,31 @@ def mfu(useful_flops: float, seconds: float, cards: int = 1) -> float:
     """Model-FLOPs utilisation: useful flops (``useful_flops``) over what
     ``cards`` H100s could do at the bf16 peak in ``seconds``."""
     return useful_flops / (seconds * cards * HW["peak_flops"])
+
+
+def masked_pairs(cfg, shape, data_ways: int, model_ways: int = 16,
+                 heads_sharded: bool = True, remat: bool = True) -> float:
+    """Flops a device's attention spends, in the reference's dry run, on
+    the (query, key) pairs a causal mask drops: its attention is XLA's
+    blocked einsum over every pair, where the port's flash kernel counts
+    the kept pairs. For a ``ShapeConfig`` of a prefill or train step
+    (decode has none) with the batch split ``data_ways`` and the heads
+    ``model_ways`` (where they divide and ``heads_sharded``); a train
+    step counts its attention 4 times with ``remat`` (the forward, the
+    checkpointed forward again, a backward of twice the forward), else
+    3."""
+    from repro_torch.config import ATTN, CROSS_ATTN
+    layers = cfg.n_superblocks * sum(k in (ATTN, CROSS_ATTN)
+                                     for k in cfg.superblock)
+    if shape.kind == "decode" or not layers:
+        return 0.0
+    heads = cfg.n_heads
+    if heads_sharded and heads % model_ways == 0:
+        heads //= model_ways
+    batch = shape.global_batch
+    if batch % data_ways == 0:
+        batch //= data_ways
+    S = shape.seq_len
+    once = (4 * cfg.resolved_head_dim * batch * heads * layers
+            * (S * S - S * (S + 1) // 2))
+    return once * ((4 if remat else 3) if shape.kind == "train" else 1)

@@ -98,6 +98,12 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _held(t: torch.Tensor) -> int:
+    """The bytes a result holds alive: its storage's."""
+    return t.untyped_storage().nbytes() if t.layout == torch.strided \
+        else _nbytes(t)
+
+
 def _numel(shape) -> int:
     n = 1
     for s in shape:
@@ -156,6 +162,34 @@ class CostCounter(TorchDispatchMode):
         finally:
             self._suspended -= 1
 
+    def mark(self) -> tuple:
+        """What the counter holds now, for ``repeat``; from here the
+        peak is that of the ops that follow (``repeat`` restores it)."""
+        held = (self.flops, self.bytes, dict(self.collectives),
+                collections.Counter(self.ops), self.peak_bytes)
+        self.peak_bytes = self.live_bytes
+        return held
+
+    def repeat(self, mark: tuple, times: int, kept=()) -> None:
+        """Count what was counted since ``mark`` ``times`` more times: a
+        loop whose steps run the same ops on the same shapes, run once
+        from the mark. ``kept``, the tensors that step leaves alive, is
+        held ``times`` more times, as the skipped steps' would be: on
+        top of the step's own peak, and until they are freed."""
+        flops, nbytes, colls, ops, peak = mark
+        self.flops += times * (self.flops - flops)
+        self.bytes += times * (self.bytes - nbytes)
+        for k in self.collectives:
+            self.collectives[k] += times * (self.collectives[k] - colls[k])
+        for k, v in list(self.ops.items()):
+            self.ops[k] += times * (v - ops.get(k, 0))
+        extra = {id(t): (t, times * _held(t)) for t in _tensors(kept)}
+        more = sum(n for _, n in extra.values())
+        self.peak_bytes = max(peak, self.peak_bytes + more)
+        self.live_bytes += more
+        for t, n in extra.values():
+            weakref.finalize(t, self._release, n)
+
     def kernel(self, name: str, flops: float, nbytes: float) -> None:
         """One call of a hand-written kernel (or its stand-in), counted by
         its analytic work."""
@@ -200,8 +234,7 @@ class CostCounter(TorchDispatchMode):
 
     def _track(self, out) -> None:
         for t in _tensors(out):
-            n = t.untyped_storage().nbytes() if t.layout == torch.strided \
-                else _nbytes(t)
+            n = _held(t)
             self.live_bytes += n
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
             weakref.finalize(t, self._release, n)

@@ -194,20 +194,6 @@ def placements(spec: Spec, mesh) -> tuple:
     return tuple(out)
 
 
-def whole_along(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` with its dim ``dim`` whole on every rank: a DTensor sharded
-    along it is gathered there (a collective the cost counter sees);
-    anything else comes back as it is."""
-    from repro_torch.kernels.route import is_sharded
-    if not is_sharded(t):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    dim %= t.dim()
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
-          for p in t.placements]
-    return t.redistribute(t.device_mesh, pl)
-
-
 def local_offset(shape, mesh, placements) -> Tuple[Tuple[int, ...],
                                                    Tuple[int, ...]]:
     """(shape, global offset) of this rank's shard of a tensor of
