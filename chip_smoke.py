@@ -217,19 +217,24 @@ Phases, each printing its own lines:
 29. the dry run (launch/dryrun.py), checked after phase 28: the
    reference's grid on 16x16 with its default flags (the 10 archs x
    train_4k, prefill_32k, decode_32k, long_500k: 40 records, in
-   len(DRYRUN_GRID) processes), and mistral-nemo-12b and
-   qwen2-moe-a2.7b x train_4k, prefill_32k, decode_32k x 16x16 and
-   2x16x16 with expert parallelism (one process per arch): one host
-   core each, fake cuda tensors on a fake process group, started
-   before phase 8; 52 records, none failed, each with its per-device
-   flops, bytes, collective bytes and dominant term; the time the
-   check waited for them. Then --arch dqn on the card through the same
+   len(DRYRUN_GRID) processes), the 10 archs' decode_32k under
+   --kv-seq-shard and decode_32k and long_500k under --fsdp on 16x16
+   (DRYRUN_FLAGS, one process per flag: 30 records), and
+   mistral-nemo-12b and qwen2-moe-a2.7b x train_4k, prefill_32k,
+   decode_32k x 16x16 and 2x16x16 with expert parallelism (one process
+   per arch): one host core each, fake cuda tensors on a fake process
+   group, started before phase 8; 82 records, none failed, each with
+   its per-device flops, bytes, collective bytes and dominant term; the
+   time the check waited for them. Then --arch dqn on the card through
+   the same
    entry point in this process (8 records, the PER and C51 presets
-   counting their kernels). Each grid record's per-device flops, with
-   the masked attention pairs the reference counts added back, are
-   within 3% of their attributed ratio to the reference's
-   (``DRYRUN_GRID_REFERENCE``, from ``python -m repro.launch.dryrun``
-   on a CPU; PERF.md attributes each ratio), and mistral-nemo-12b's
+   counting their kernels). Each grid and flag record's per-device
+   flops, with the masked attention pairs the reference counts added
+   back, are within 3% of their attributed ratio to the reference's
+   (``DRYRUN_GRID_REFERENCE`` and ``DRYRUN_FLAG_REFERENCE``, from
+   ``python -m repro.launch.dryrun`` on a CPU; PERF.md attributes each
+   ratio), those whose port fault was repaired (DRYRUN_REPAIRED) within
+   0.9-1.1, and mistral-nemo-12b's
    prefill and decode records on both meshes are held to the
    reference's figures (``DRYRUN_REFERENCE``) as
    tests/test_torch_dryrun.py holds them: the raw ratio within
@@ -245,7 +250,11 @@ Phases, each printing its own lines:
    configuration on the card against the same on the CPU (integer state
    equal, float leaves within the rounding bound of
    tests/test_torch_dqn_bf16.py); two bf16 cycles (C=BF16_RERUN_STEPS)
-   from one carry bitwise equal.
+   from one carry bitwise equal;
+31. the gathers that take a gradient on the LLM paths (the MoE's picks,
+   the embedding lookup) are index_select: the card's torch's list of
+   ops deterministic under the flag is printed, and each backward,
+   taken twice at qwen2-moe-a2.7b's shapes, gives the same bits.
    Each phase prints its wall time, and the run its total; phases 15-18
    keep their checkpoints in a temporary directory they remove.
 
@@ -261,7 +270,11 @@ same bits; flash attention at zamba2's head dim 80 (the wgmma body,
 with and without a window) and decode attention with one query head per
 KV head; decode attention at cache lengths on and around the boundaries
 of the split the kernel picks (against the plain version and the
-emulation of its split), the cross caches' included; and that two
+emulation of its split), the cross caches' included; decode attention's
+log-sum-exp (``return_lse``, which ``--kv-seq-shard`` decode combines
+the ranks' shards by) within LSE_TOL of the plain version's at every
+decode shape, cache_len 0 included (-inf), its output bitwise the call's
+without it; and that two
 launches of each attention kernel give the same bits at the serve
 paths' shapes. Phase 4 times them, RMSNorm at the prefill's and the
 decode step's rows, prints each attention kernel's and RMSNorm's time as a
@@ -433,6 +446,10 @@ GRAD_TIMED = ((AL_STREAMS, AL_SEQ - 1, 32, 32, 80, None),
               (AL_STREAMS * (AL_SEQ - 1), 2560),
               (AL_STREAMS, AL_SEQ - 1, 80, 64, 64, "chunk 128"),
               (TRAIN_BATCH, TRAIN_SEQ, 4, 192, "cold"))
+
+
+# decode attention's log-sum-exp against the plain version's, absolute
+LSE_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2034,12 +2051,48 @@ def _llm_case(case: tuple, gen, dev, ns=()) -> float:
         err = 0.0
         for n in ns or sorted({1, (L + 1) // 2, L}):
             nd = torch.full((), n, dtype=torch.int32, device=dev)
+            got = da.decode_attention(q, kc, vc, nd)
             err = max(err, _llm_check(
-                name, da.decode_attention(q, kc, vc, nd),
-                da.decode_attention_plain(q, kc, vc, nd), dtype,
+                name, got, da.decode_attention_plain(q, kc, vc, nd), dtype,
                 case + (n,), to_output=True))
+            _lse_check(q, kc, vc, n, got, case)
+        _lse_check(q, kc, vc, 0, None, case)
     PARITY_DONE.add(case)
     return err
+
+
+LSE_ERR = {}
+
+
+def _lse_check(q, kc, vc, n: int, out, case) -> None:
+    """Decode attention's log-sum-exp (``return_lse``) against the plain
+    version's within LSE_TOL absolute, its output bitwise the call's
+    without it (``out``); at cache_len 0 both are -inf on every row. In
+    bfloat16 the plain version runs on the float32 copies of the same
+    values: its bf16 product rounds each score to bf16 before the
+    softmax, where the kernel keeps them in float32."""
+    from repro_torch.kernels import decode_attention as da
+    nd = torch.full((), n, dtype=torch.int32, device=q.device)
+    o, lse = da.decode_attention(q, kc, vc, nd, return_lse=True)
+    f = (lambda t: t.float()) if q.dtype == torch.bfloat16 else (
+        lambda t: t)
+    _, want = da.decode_attention_plain(f(q), f(kc), f(vc), nd,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    check(lse.dtype == torch.float32 and lse.shape == want.shape,
+          f"decode_attention lse at {case} n={n}: {lse.dtype} "
+          f"{tuple(lse.shape)}, plain {tuple(want.shape)}")
+    if n == 0:
+        check(bool(torch.isneginf(lse).all() and torch.isneginf(want).all()),
+              f"decode_attention lse at {case}: an empty row is not -inf")
+        return
+    check(torch.equal(o, out), f"decode_attention at {case} n={n}: the "
+          f"output with return_lse differs from the call without it")
+    err = float((lse - want).abs().max())
+    check(bool(torch.isfinite(lse).all()) and err <= LSE_TOL,
+          f"decode_attention lse differs from the plain version's at "
+          f"{case} n={n}: max abs err {err} (tolerance {LSE_TOL})")
+    LSE_ERR[q.dtype] = max(LSE_ERR.get(q.dtype, 0.0), err)
 
 
 def phase_llm_parity(dev):
@@ -2103,6 +2156,11 @@ def phase_llm_parity(dev):
         f"{n_bounds} cache lengths at the decode split's boundaries; max "
         "abs err in bf16 at the paths' shapes: "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    say(f"parity decode_attention lse: within {LSE_TOL} of the plain "
+        f"version's at the {len(DECODE_CASES)} decode shapes in both dtypes "
+        "(the output with it bitwise the call's without), -inf at cache_len "
+        "0; max abs err " + ", ".join(f"{str(k)[6:]} {v:.3e}"
+                                      for k, v in LSE_ERR.items()))
     return errs
 
 
@@ -3529,51 +3587,102 @@ DRYRUN_RATIO = {"prefill_32k": (0.7, 0.8), "decode_32k": (0.9, 1.1)}
 # all --mesh single`` on a CPU; the ratio of the port's, the masked
 # attention pairs added back, as PERF.md attributes it)
 DRYRUN_GRID_REFERENCE = {
-    ("mistral-nemo-12b", "train_4k"): (408990672480057.0, 1.025),
+    ("mistral-nemo-12b", "train_4k"): (408990672480057.0, 0.998),
     ("mistral-nemo-12b", "prefill_32k"): (188026854136610.0, 0.991),
     ("mistral-nemo-12b", "decode_32k"): (22942182820.0, 0.992),
     ("mistral-nemo-12b", "long_500k"): (1672583929.0, 0.998),
-    ("zamba2-2.7b", "train_4k"): (99866756879786.0, 1.063),
-    ("zamba2-2.7b", "prefill_32k"): (36705558704069.0, 1.027),
-    # 0.985 under torch 2.13
-    ("zamba2-2.7b", "decode_32k"): (4448004373.0, 1.012),
+    ("zamba2-2.7b", "train_4k"): (99866756879786.0, 1.050),
+    ("zamba2-2.7b", "prefill_32k"): (36705558704069.0, 1.026),
+    ("zamba2-2.7b", "decode_32k"): (4448004373.0, 0.984),
     ("zamba2-2.7b", "long_500k"): (386174231.0, 0.990),
-    ("granite-moe-1b-a400m", "train_4k"): (24442991049412.0, 10.173),
-    ("granite-moe-1b-a400m", "prefill_32k"): (18225343713122.0, 0.971),
-    ("granite-moe-1b-a400m", "decode_32k"): (11513867053.0, 0.999),
-    ("granite-moe-1b-a400m", "long_500k"): (1256739973.0, 0.999),
-    ("llama-3.2-vision-11b", "train_4k"): (366407396286215.0, 1.017),
+    ("granite-moe-1b-a400m", "train_4k"): (24442991049412.0, 0.989),
+    ("granite-moe-1b-a400m", "prefill_32k"): (18225343713122.0, 0.970),
+    ("granite-moe-1b-a400m", "decode_32k"): (11513867053.0, 0.994),
+    ("granite-moe-1b-a400m", "long_500k"): (1256739973.0, 0.998),
+    ("llama-3.2-vision-11b", "train_4k"): (366407396286215.0, 0.993),
     ("llama-3.2-vision-11b", "prefill_32k"): (171388332694374.0, 0.990),
     ("llama-3.2-vision-11b", "decode_32k"): (20904964141.0, 0.991),
     ("llama-3.2-vision-11b", "long_500k"): (1417932907.0, 0.998),
-    # the card's torch (2.11) computes the experts' w_down gradient
-    # whole (all 64 padded experts on every rank): 2.880, where torch
-    # 2.13 gives 2.411 (PERF.md)
-    ("qwen2-moe-a2.7b", "train_4k"): (97808048793576.0, 2.880),
+    ("qwen2-moe-a2.7b", "train_4k"): (97808048793576.0, 0.997),
     ("qwen2-moe-a2.7b", "prefill_32k"): (49134903709602.0, 0.989),
-    ("qwen2-moe-a2.7b", "decode_32k"): (111234104164.0, 1.001),
+    ("qwen2-moe-a2.7b", "decode_32k"): (111234104164.0, 0.999),
     ("qwen2-moe-a2.7b", "long_500k"): (13545811242.0, 1.000),
-    ("xlstm-125m", "train_4k"): (19542648527369.0, 1.033),
+    ("xlstm-125m", "train_4k"): (19542648527369.0, 1.001),
     ("xlstm-125m", "prefill_32k"): (5112214481971.0, 1.000),
-    ("xlstm-125m", "decode_32k"): (634519199.0, 1.243),
-    ("xlstm-125m", "long_500k"): (74003457.0, 1.374),
-    ("granite-20b", "train_4k"): (974804340155745.0, 1.004),
+    ("xlstm-125m", "decode_32k"): (634519199.0, 0.985),
+    ("xlstm-125m", "long_500k"): (74003457.0, 1.056),
+    ("granite-20b", "train_4k"): (974804340155745.0, 0.998),
     ("granite-20b", "prefill_32k"): (413240717637234.0, 0.992),
     ("granite-20b", "decode_32k"): (50430876804.0, 0.993),
     ("granite-20b", "long_500k"): (3973229368.0, 0.998),
-    ("granite-3-8b", "train_4k"): (305195275504477.0, 1.008),
+    ("granite-3-8b", "train_4k"): (305195275504477.0, 0.997),
     ("granite-3-8b", "prefill_32k"): (159419277531940.0, 0.990),
     ("granite-3-8b", "decode_32k"): (19450058319.0, 0.990),
     ("granite-3-8b", "long_500k"): (1236063889.0, 0.998),
-    ("whisper-tiny", "train_4k"): (12991851971662.0, 1.027),
+    ("whisper-tiny", "train_4k"): (12991851971662.0, 0.986),
     ("whisper-tiny", "prefill_32k"): (15010054939377.0, 0.967),
     ("whisper-tiny", "decode_32k"): (1825718449.0, 0.967),
     ("whisper-tiny", "long_500k"): (22616709.0, 0.982),
-    ("starcoder2-3b", "train_4k"): (828125420209239.0, 0.997),
+    ("starcoder2-3b", "train_4k"): (828125420209239.0, 0.994),
     ("starcoder2-3b", "prefill_32k"): (915288786027608.0, 0.985),
     ("starcoder2-3b", "decode_32k"): (111721808462.0, 0.985),
-    ("starcoder2-3b", "long_500k"): (3209011095.0, 0.992),
+    ("starcoder2-3b", "long_500k"): (3209011095.0, 0.991),
 }
+
+# phase 29's records under a flag: the shapes of each process's records
+DRYRUN_FLAGS = {"kv-seq-shard": "decode_32k", "fsdp": "decode_32k,long_500k"}
+# (flag, arch, shape) -> as DRYRUN_GRID_REFERENCE, for ``python -m
+# repro.launch.dryrun --arch all --shape all --mesh single --<flag>``
+DRYRUN_FLAG_REFERENCE = {
+    ("kv-seq-shard", "granite-20b", "decode_32k"): (109762272402.0, 0.993),
+    ("kv-seq-shard", "granite-3-8b", "decode_32k"): (46969210457.0, 0.939),
+    ("kv-seq-shard", "granite-moe-1b-a400m", "decode_32k"):
+        (13427252023.0, 0.935),
+    ("kv-seq-shard", "llama-3.2-vision-11b", "decode_32k"):
+        (54052363943.0, 0.946),
+    ("kv-seq-shard", "mistral-nemo-12b", "decode_32k"): (56668904878.0, 0.949),
+    ("kv-seq-shard", "qwen2-moe-a2.7b", "decode_32k"): (120497310578.0, 0.973),
+    ("kv-seq-shard", "starcoder2-3b", "decode_32k"): (20024200284.0, 0.970),
+    ("kv-seq-shard", "whisper-tiny", "decode_32k"): (362939327.0, 0.706),
+    ("kv-seq-shard", "xlstm-125m", "decode_32k"): (634528413.0, 0.985),
+    ("kv-seq-shard", "zamba2-2.7b", "decode_32k"): (9497905955.0, 0.834),
+    ("fsdp", "granite-20b", "decode_32k"): (49209155416.0, 1.017),
+    ("fsdp", "granite-20b", "long_500k"): (561122823.0, 0.994),
+    ("fsdp", "granite-3-8b", "decode_32k"): (19450059037.0, 0.990),
+    ("fsdp", "granite-3-8b", "long_500k"): (237634562.0, 0.993),
+    ("fsdp", "granite-moe-1b-a400m", "decode_32k"): (11502439933.0, 0.995),
+    ("fsdp", "granite-moe-1b-a400m", "long_500k"): (103965705.0, 0.988),
+    ("fsdp", "llama-3.2-vision-11b", "decode_32k"): (20908897003.0, 0.991),
+    ("fsdp", "llama-3.2-vision-11b", "long_500k"): (261540324.0, 0.994),
+    ("fsdp", "mistral-nemo-12b", "decode_32k"): (22942183538.0, 0.992),
+    ("fsdp", "mistral-nemo-12b", "long_500k"): (264956891.0, 0.996),
+    ("fsdp", "qwen2-moe-a2.7b", "decode_32k"): (111195766328.0, 0.999),
+    ("fsdp", "qwen2-moe-a2.7b", "long_500k"): (900663197.0, 0.995),
+    ("fsdp", "starcoder2-3b", "decode_32k"): (106767287586.0, 1.030),
+    ("fsdp", "starcoder2-3b", "long_500k"): (1641625843.0, 0.984),
+    ("fsdp", "whisper-tiny", "decode_32k"): (1790560343.0, 0.986),
+    ("fsdp", "whisper-tiny", "long_500k"): (13058542.0, 0.971),
+    ("fsdp", "xlstm-125m", "decode_32k"): (280625523.0, 2.227),
+    ("fsdp", "xlstm-125m", "long_500k"): (5171765.0, 3.483),
+    ("fsdp", "zamba2-2.7b", "decode_32k"): (4448005095.0, 0.984),
+    ("fsdp", "zamba2-2.7b", "long_500k"): (55260732.0, 0.938),
+}
+# (flag or None, arch, shape) of the records whose per-rank work
+# ``sharding/partition.py`` repaired: each also within 0.9-1.1 with the
+# masked pairs added back
+# (whisper's and zamba2's --kv-seq-shard decode count the reference's
+# elementwise cache write and softmax, and xlstm's --fsdp the work its
+# partitioner moves onto ranks the rules leave idle: PERF.md)
+DRYRUN_REPAIRED = (
+    {(None, "xlstm-125m", s) for s in ("decode_32k", "long_500k")}
+    | {("kv-seq-shard", a, "decode_32k") for a in (
+        "mistral-nemo-12b", "granite-moe-1b-a400m", "llama-3.2-vision-11b",
+        "qwen2-moe-a2.7b", "xlstm-125m", "granite-20b", "granite-3-8b",
+        "starcoder2-3b")}
+    | {("fsdp", a, "long_500k") for a in (
+        "mistral-nemo-12b", "granite-3-8b", "llama-3.2-vision-11b",
+        "granite-20b")}
+    | {("fsdp", "qwen2-moe-a2.7b", "decode_32k")})
 # phase 30: the bf16 DQN run's C and prepopulate, the C of its rerun,
 # and pong's episode cap (the eval runs the cap's rounds whatever the
 # episodes do: 500 for pong as committed)
@@ -3852,13 +3961,18 @@ def _stop(proc: subprocess.Popen) -> None:
 
 def phase_dryrun_start(d: str) -> list:
     """Phase 29 (LLM grids started): the 16x16 grid at the default flags
-    in len(DRYRUN_GRID) processes, and the two archs x 3 shapes x both
-    meshes with expert parallelism, one process per arch; one host core
-    each (fake tensors: no card work), while phases 8-28 run."""
+    in len(DRYRUN_GRID) processes, the 10 archs' DRYRUN_FLAGS records in
+    one process per flag, and the two archs x 3 shapes x both meshes with
+    expert parallelism, one process per arch; one host core each (fake
+    tensors: no card work), while phases 8-28 run."""
     one = {"OMP_NUM_THREADS": "1"}
     runs = [_dryrun_start(f"{d}/grid{i}.json", "--arch", ",".join(archs),
                           "--shape", "all", "--mesh", "single", env=one)
             for i, archs in enumerate(DRYRUN_GRID)]
+    runs += [_dryrun_start(f"{d}/{flag}.json", "--arch", "all", "--shape",
+                           shapes, "--mesh", "single", f"--{flag}",
+                           env=one)
+             for flag, shapes in DRYRUN_FLAGS.items()]
     return runs + [_dryrun_start(f"{d}/{arch}.json", "--arch", arch,
                                  "--shape", DRYRUN_SHAPES, "--mesh", "both",
                                  "--moe-impl", "expert_parallel", env=one)
@@ -3880,10 +3994,11 @@ def phase_dryrun_dqn(d: str) -> tuple:
 
 def phase_dryrun_check(runs: list, dqn: tuple) -> None:
     """Phase 29: the LLM grids' processes (``runs``) and the DQN grid
-    (``dqn``) exit 0; 40 grid records, 12 expert-parallel records and 8
-    DQN records, none failed, each with its per-device costs and
-    dominant term; the grid held to the reference's records; the PER and
-    C51 presets count their kernels."""
+    (``dqn``) exit 0; 40 grid records, 30 flag records, 12
+    expert-parallel records and 8 DQN records, none failed, each with
+    its per-device costs and dominant term; the grid and flag records
+    held to the reference's records; the PER and C51 presets count their
+    kernels."""
     done = []
     t0 = time.perf_counter()
     for out, proc in runs:
@@ -3896,34 +4011,40 @@ def phase_dryrun_check(runs: list, dqn: tuple) -> None:
         tail = "\n".join(text.strip().splitlines()[-3:])
         check(rc == 0, f"dry run {out}: exit {rc}: {text[-2000:]}")
         recs = json.loads(Path(out).read_text())
+        stem = Path(out).stem
         for r in recs:
-            r["grid"] = Path(out).stem.startswith("grid")
+            r["grid"] = stem.startswith("grid")
+            r["flag"] = stem if stem in DRYRUN_FLAGS else None
         records.extend(recs)
         say(f"dry run {Path(out).stem}: {tail}")
     grid = [r for r in records if r["grid"]]
-    ep = [r for r in records if r["arch"] != "dqn" and not r["grid"]]
+    flagged = [r for r in records if r["flag"]]
+    ep = [r for r in records if r["arch"] != "dqn" and not r["grid"]
+          and not r["flag"]]
     dqn = [r for r in records if r["arch"] == "dqn"]
     errors = [(r["arch"], r["shape"], r["error"]) for r in records
               if "error" in r]
-    check(len(grid) == 40 and len(ep) == 12 and len(dqn) == 8
-          and not errors,
-          f"dry run: {len(grid)} grid, {len(ep)} expert-parallel and "
-          f"{len(dqn)} DQN records, errors {errors}")
+    check(len(grid) == 40 and len(flagged) == len(DRYRUN_FLAG_REFERENCE)
+          and len(ep) == 12 and len(dqn) == 8 and not errors,
+          f"dry run: {len(grid)} grid, {len(flagged)} flag, {len(ep)} "
+          f"expert-parallel and {len(dqn)} DQN records, errors {errors}")
     keys = ("flops_per_device", "bytes_per_device",
             "collective_bytes_per_device", "dominant", "hbm_gb_per_device",
             "model_flops_global", "useful_ratio", "trace_s")
-    for r in grid + ep:
+    for r in grid + flagged + ep:
         check(all(k in r for k in keys) and r["flops_per_device"] > 0,
               f"dry run record {r['arch']} {r['shape']} {r['mesh']}: {r}")
+        kind = ("" if r["grid"] else f", --{r['flag']}" if r["flag"]
+                else ", ep")
         say(f"dry run {r['arch']} {r['shape']} {r['mesh']} "
-            f"[{r['variant']}{', ep' if not r['grid'] else ''}]: "
+            f"[{r['variant']}{kind}]: "
             f"{r['flops_per_device']:.4e} flop/dev, "
             f"{r['bytes_per_device']:.4e} B/dev, coll "
             f"{r['collective_bytes_per_device']:.4e} B/dev, dominant "
             f"{r['dominant']}, {r['hbm_gb_per_device']:.2f} GB/dev, "
             f"useful {r['useful_ratio']:.3f}, trace {r['trace_s']} s, "
             f"kernels {r['kernel_calls']}")
-    for r in grid:
+    for r in grid + flagged:
         _grid_against_reference(r)
     for r in ep:
         if (r["arch"] == "mistral-nemo-12b"
@@ -3944,20 +4065,32 @@ def phase_dryrun_check(runs: list, dqn: tuple) -> None:
 
 
 def _grid_against_reference(r: dict) -> None:
-    """A 16x16 grid record's per-device flops, the masked pairs added
-    back (``dryrun.versus``), within 3% of their attributed ratio to the
-    reference's."""
+    """A 16x16 grid record's per-device flops (default flags, or a
+    DRYRUN_FLAGS record), the masked pairs added back (``dryrun.versus``
+    with the record's flags), within 3% of their attributed ratio to the
+    reference's; a record whose port fault was repaired (DRYRUN_REPAIRED)
+    also within 0.9-1.1."""
+    from repro_torch.config import ExecConfig
     from repro_torch.launch.dryrun import versus
-    ref, want = DRYRUN_GRID_REFERENCE[(r["arch"], r["shape"])]
+    flag = r.get("flag")
+    if flag:
+        ref, want = DRYRUN_FLAG_REFERENCE[(flag, r["arch"], r["shape"])]
+        ec = ExecConfig(remat=True, **{flag.replace("-", "_"): True})
+    else:
+        ref, want = DRYRUN_GRID_REFERENCE[(r["arch"], r["shape"])]
+        ec = ExecConfig(remat=True)
     port = r["flops_per_device"]
-    ratio, got = versus(r, ref)
-    check(abs(got / want - 1) <= 0.03,
-          f"dry run {r['arch']} {r['shape']} 16x16: {port:.4e} flop/dev "
-          f"against the reference's {ref:.4e}: {got:.3f}x with the masked "
-          f"pairs added back, {want:.3f}x attributed")
-    say(f"dry run {r['arch']} {r['shape']} 16x16 against the reference: "
-        f"{port:.4e} vs {ref:.4e} flop/dev, {ratio:.3f}x, {got:.3f}x "
-        f"with the masked pairs added back; attributed {want:.3f}x")
+    ratio, got = versus(r, ref, ec)
+    label = (f"dry run {r['arch']} {r['shape']} 16x16"
+             + (f" --{flag}" if flag else ""))
+    repaired = (flag, r["arch"], r["shape"]) in DRYRUN_REPAIRED
+    check(abs(got / want - 1) <= 0.03 and (not repaired or 0.9 <= got <= 1.1),
+          f"{label}: {port:.4e} flop/dev against the reference's "
+          f"{ref:.4e}: {got:.3f}x with the masked pairs added back, "
+          f"{want:.3f}x attributed{', repaired: 0.9-1.1' if repaired else ''}")
+    say(f"{label} against the reference: {port:.4e} vs {ref:.4e} flop/dev, "
+        f"{ratio:.3f}x, {got:.3f}x with the masked pairs added back; "
+        f"attributed {want:.3f}x{' (repaired)' if repaired else ''}")
 
 
 def _dryrun_against_reference(r: dict) -> None:
@@ -3979,6 +4112,59 @@ def _dryrun_against_reference(r: dict) -> None:
         f"reference: {port:.4e} vs {ref:.4e} flop/dev, {ratio:.3f}x "
         f"({attributed:.3f}x with the reference's masked pairs counted "
         f"out)")
+
+
+def phase_gather_backward(dev) -> None:
+    """Phase 31: the gathers that take a gradient on the LLM paths (the
+    MoE's dispatch and combine picks, ``moe._pick``, and the embedding
+    lookup, ``transformer.embed_tokens``) are ``index_select``, whose
+    backward (an ``index_add``) this card's torch lists as deterministic
+    on CUDA under ``torch.use_deterministic_algorithms``; each backward
+    is taken twice at qwen2-moe-a2.7b's shapes (a train_4k row pair: the
+    dispatch into the 64 padded experts' buffers and the combine out of
+    them; its vocabulary) and the two gradients held bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import embed_tokens
+    doc = [line.strip() for line in
+           (torch.use_deterministic_algorithms.__doc__ or "").splitlines()
+           if "index_select" in line or "torch.gather" in line]
+    say(f"torch {torch.__version__} lists as deterministic under the flag: "
+        + "; ".join(doc))
+    check(torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are off")
+    cfg = get_config("qwen2-moe-a2.7b")
+    m = cfg.moe
+    B, S, d = 2, 4096, cfg.d_model
+    E, cap = M.padded_experts(m), M.capacity(m, S)
+    gen = torch.Generator().manual_seed(11)
+    cases = (("dispatch", (B, S, d), (B, E * cap), S),
+             ("combine", (B, E * cap, d), (B, S * m.top_k), E * cap))
+
+    def twice(fn, src, label):
+        grads = []
+        for _ in range(2):
+            leaf = src.clone().requires_grad_(True)
+            out = fn(leaf)
+            out.backward(torch.ones_like(out))
+            grads.append(leaf.grad)
+        torch.cuda.synchronize()
+        check(torch.equal(*grads), f"{label}: two backwards differ")
+        return tuple(out.shape)
+
+    for label, shape, idx_shape, n in cases:
+        src = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        idx = torch.randint(0, n + 1, idx_shape, generator=gen).to(dev)
+        got = twice(lambda t: M._pick(t, idx, True), src, label)
+        say(f"gather backward {label} {tuple(shape)} -> {got}: bitwise "
+            "twice")
+    table = torch.randn(-(-cfg.vocab // 256) * 256, d,
+                        generator=gen).to(dev, torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen).to(dev)
+    got = twice(lambda t: embed_tokens(t, tokens, torch.bfloat16), table,
+                "embedding")
+    say(f"gather backward embedding {tuple(table.shape)} -> {got}: bitwise "
+        "twice")
 
 
 def _bf16_spec(spec):
@@ -4257,6 +4443,7 @@ def main() -> int:
     say(f"cost, expert-parallel and dry-run phases: "
         f"{time.perf_counter() - t0:.1f} s")
     new_paths.update(timed("30 (DQN in bf16)", phase_bf16, dev))
+    timed("31 (gather backward)", phase_gather_backward, dev)
 
     kernels = []
     for name, (_, source, tpu) in kernel_table().items():

@@ -53,7 +53,9 @@
 // the G D outputs, each reading every block's (m, l, acc) through
 // distributed shared memory and combining them in split order: m* =
 // max m_i, l = sum e^(m_i - m*) l_i, o = sum e^(m_i - m*) acc_i /
-// max(l, 1e-30). No second kernel, no atomics, no workspace: one launch
+// max(l, 1e-30); on request also each row's log-sum-exp m* + log(l),
+// which a caller that splits L across cards (flash-decoding over ranks)
+// combines by. No second kernel, no atomics, no workspace: one launch
 // per call, and the result is the same bits on every run.
 //
 // What bounds it on this card: bytes. At the serve path's decode (B = 8,
@@ -225,13 +227,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 // The cluster's combine: after a cluster barrier, the blocks of the
 // cluster share the G D outputs, and each output reads every block's
 // (m, l, acc) through distributed shared memory and combines them in
-// split order. A second barrier keeps every block's memory alive until
-// all have read it.
+// split order. Where `lse` is not null, the thread of each head's first
+// column also writes that head's log-sum-exp of the scaled scores, m* +
+// log(l): -inf for a row with no valid position (every split's l is 0).
+// A second barrier keeps every block's memory alive until all have read
+// it.
 template <typename T>
 __device__ __forceinline__ void cluster_combine(cg::cluster_group& cluster,
                                                 float* part_m, float* part_l,
                                                 float* part_acc, T* ob,
-                                                int G, int D) {
+                                                float* lse, int G, int D) {
   const int split = blockIdx.x, splits = gridDim.x, tid = threadIdx.x;
   cluster.sync();  // every block's result is in its shared memory
   for (int i = split * kThreads + tid; i < G * D; i += splits * kThreads) {
@@ -259,8 +264,15 @@ __device__ __forceinline__ void cluster_combine(cg::cluster_group& cluster,
       }
     }
     ob[i] = Elem<T>::put(o / fmaxf(l, 1e-30f));
+    if (lse != nullptr && i % D == 0) lse[g] = m + logf(l);
   }
   cluster.sync();  // no block leaves while another may read its memory
+}
+
+// The offset of batch row b's first head in a (B, H) array: H = G Hkv,
+// and the grid's y dim runs over the KV heads.
+__device__ __forceinline__ int64_t row_of(int b, int G) {
+  return static_cast<int64_t>(b) * G * gridDim.y;
 }
 
 // The scalar body: float32, and the bf16 shapes the tensor-core body
@@ -270,7 +282,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_fwd_split(const T* __restrict__ q, const T* __restrict__ kc,
                  const T* __restrict__ vc,
                  const int32_t* __restrict__ cache_len, T* __restrict__ out,
-                 int L, int D, int G, Plan plan, int64_t sqb, int64_t skb,
+                 float* __restrict__ lse, int L, int D, int G, Plan plan,
+                 int64_t sqb, int64_t skb,
                  int64_t skh, int64_t sks, int64_t svb, int64_t svh,
                  int64_t svs, int64_t sob, float scale) {
   constexpr int N = Elem<T>::N;
@@ -450,7 +463,8 @@ decode_fwd_split(const T* __restrict__ q, const T* __restrict__ kc,
     }
   }
   cluster_combine(cluster, part_m, part_l, part_acc,
-                  out + b * sob + static_cast<int64_t>(h0) * D, G, D);
+                  out + b * sob + static_cast<int64_t>(h0) * D,
+                  lse == nullptr ? nullptr : lse + row_of(b, G) + h0, G, D);
 }
 
 // ---------------------------------------------------------------------------
@@ -510,7 +524,8 @@ decode_fwd_mma(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ kc,
                const __nv_bfloat16* __restrict__ vc,
                const int32_t* __restrict__ cache_len,
-               __nv_bfloat16* __restrict__ out, int L, int D, int G,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               int L, int D, int G,
                Plan plan, int64_t sqb, int64_t skb, int64_t skh, int64_t sks,
                int64_t svb, int64_t svh, int64_t svs, int64_t sob,
                float scale) {
@@ -722,20 +737,22 @@ decode_fwd_mma(const __nv_bfloat16* __restrict__ q,
     }
   }
   cluster_combine(cluster, part_m, part_l, part_acc,
-                  out + b * sob + static_cast<int64_t>(h0) * D, G, D);
+                  out + b * sob + static_cast<int64_t>(h0) * D,
+                  lse == nullptr ? nullptr : lse + row_of(b, G) + h0, G, D);
 }
 
 template <typename T>
 using DecodeKernel = void (*)(const T*, const T*, const T*, const int32_t*,
-                              T*, int, int, int, Plan, int64_t, int64_t,
+                              T*, float*, int, int, int, Plan, int64_t,
                               int64_t, int64_t, int64_t, int64_t, int64_t,
-                              int64_t, float);
+                              int64_t, int64_t, float);
 
 // Launches kernel K with `smem` bytes of shared memory per block, or with
 // `plan_out` fills it with (splits, chunk) and launches nothing.
 template <typename T, DecodeKernel<T> K>
 int launch(const void* q, const void* k, const void* v, const void* cache_len,
-           void* out, int B, int H, int Hkv, int L, int D, const int64_t* st,
+           void* out, float* lse, int B, int H, int Hkv, int L, int D,
+           const int64_t* st,
            float scale, size_t smem, cudaStream_t stream, int* plan_out) {
   const int G = H / Hkv;
   static size_t configured = 0;  // the largest size allowed so far
@@ -790,8 +807,8 @@ int launch(const void* q, const void* k, const void* v, const void* cache_len,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, K, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(cache_len),
-      static_cast<T*>(out), L, D, G, plan, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], scale);
+      static_cast<T*>(out), lse, L, D, G, plan, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], scale);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -808,7 +825,8 @@ size_t smem_for(int D, int G, int dtype) {
 }
 
 int dispatch(const void* q, const void* k, const void* v,
-             const void* cache_len, void* out, int B, int H, int Hkv, int L,
+             const void* cache_len, void* out, float* lse, int B, int H,
+             int Hkv, int L,
              int D, const int64_t* strides, float scale, int dtype,
              cudaStream_t s, int* plan_out) {
   if (B <= 0 || H <= 0) return 0;
@@ -819,7 +837,7 @@ int dispatch(const void* q, const void* k, const void* v,
   const int G = H / Hkv;
   const size_t smem = smem_for(D, G, dtype);
 #define DECODE_LAUNCH(T, KERNEL)                                             \
-  return launch<T, KERNEL>(q, k, v, cache_len, out, B, H, Hkv, L, D,        \
+  return launch<T, KERNEL>(q, k, v, cache_len, out, lse, B, H, Hkv, L, D,   \
                            strides, scale, smem, s, plan_out)
   if (dtype == 0) DECODE_LAUNCH(float, decode_fwd_split<float>);
   if (takes_mma(D, G, dtype)) {
@@ -847,8 +865,8 @@ extern "C" int decode_attention_split_plan(int B, int H, int Hkv, int L,
                                            int D, int dtype, int* splits,
                                            int* chunk) {
   int plan[2] = {1, L};
-  const int e = dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, B, H,
-                         Hkv, L, D, nullptr, 0.0f, dtype, nullptr, plan);
+  const int e = dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         B, H, Hkv, L, D, nullptr, 0.0f, dtype, nullptr, plan);
   *splits = plan[0];
   *chunk = plan[1];
   return e;
@@ -857,15 +875,18 @@ extern "C" int decode_attention_split_plan(int B, int H, int Hkv, int L,
 // q: (B, H, D) with batch stride st[0] and heads contiguous; k, v: (B,
 // Hkv, L, D) with strides st[1..3] and st[4..6] (b, h, position); out:
 // (B, H, D) with batch stride st[7]; all in elements, the head dim
-// contiguous. cache_len: a device int32. dtype 0 = float32, 1 =
-// bfloat16. D % 8 == 0, D <= 256, H % Hkv == 0, pointers and K/V strides
-// 16-byte aligned (the wrapper checks). Launches on `stream` and returns
-// the launch's error.
+// contiguous. lse: null, or a contiguous float32 (B, H) that receives
+// each row's log-sum-exp of the scaled scores over the valid positions
+// (-inf where there are none). cache_len: a device int32. dtype 0 =
+// float32, 1 = bfloat16. D % 8 == 0, D <= 256, H % Hkv == 0, pointers
+// and K/V strides 16-byte aligned (the wrapper checks). Launches on
+// `stream` and returns the launch's error.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* cache_len, void* out, int B,
-                                int H, int Hkv, int L, int D,
+                                const void* cache_len, void* out, void* lse,
+                                int B, int H, int Hkv, int L, int D,
                                 const int64_t* strides, float scale, int dtype,
                                 void* stream) {
-  return dispatch(q, k, v, cache_len, out, B, H, Hkv, L, D, strides, scale,
-                  dtype, static_cast<cudaStream_t>(stream), nullptr);
+  return dispatch(q, k, v, cache_len, out, static_cast<float*>(lse), B, H,
+                  Hkv, L, D, strides, scale, dtype,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }

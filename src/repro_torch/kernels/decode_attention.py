@@ -11,9 +11,10 @@ states in the same launch; on a CPU tensor it runs the plain version of
 ``kernels/ref.py``. ``decode_attention_split`` emulates the kernel's
 split and fixed-order combine in plain PyTorch, and
 ``kernel_split_plan`` reports the split the kernel picks; the tests use
-both. Forward only. Fake tensors take a shape-only branch and DTensors
-run on their local shards, along batch and query heads, a rank's KV
-heads those its query heads read (``route``).
+both. With ``return_lse`` each also returns the rows' log-sum-exp of the
+scaled scores, which the kernel writes in its combine: what a caller
+that splits L over ranks combines the ranks' outputs by. Forward only.
+Fake tensors take a shape-only branch (``route``).
 """
 
 from __future__ import annotations
@@ -35,10 +36,16 @@ MAX_HEAD_DIM = 256
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
-                           cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
-    """The plain version in the model's layout."""
+                           cache_len: Union[int, torch.Tensor],
+                           return_lse: bool = False):
+    """The plain version in the model's layout: (B, 1, H, D), and with
+    ``return_lse`` the float32 (B, 1, H) log-sum-exp."""
     B, _, H, D = q.shape
-    return _plain(q.reshape(B, H, D), k_cache, v_cache, cache_len)[:, None]
+    out = _plain(q.reshape(B, H, D), k_cache, v_cache, cache_len,
+                 return_lse=return_lse)
+    if return_lse:
+        return out[0][:, None], out[1][:, None]
+    return out[:, None]
 
 
 def split_chunk(L: int, splits: int) -> int:
@@ -50,13 +57,13 @@ def split_chunk(L: int, splits: int) -> int:
 def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor,
                            cache_len: Union[int, torch.Tensor],
-                           splits: int) -> torch.Tensor:
+                           splits: int, return_lse: bool = False):
     """The kernel's schedule in plain PyTorch (float32 throughout): each
     of ``splits`` chunks of the cache yields (m, l, acc) over its share
     of the valid prefix, or (-1e30, 0, 0) if it has none, and the chunks
     are combined in split order: m* = max m_i, l = sum e^(m_i - m*) l_i,
-    out = sum e^(m_i - m*) acc_i / max(l, 1e-30). Layouts as
-    ``decode_attention``."""
+    out = sum e^(m_i - m*) acc_i / max(l, 1e-30), and the log-sum-exp
+    m* + log(l) (-inf where l is 0). Layouts as ``decode_attention``."""
     B, _, H, D = q.shape
     Hkv, L = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -89,13 +96,16 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
         l = l + w * li
         o = o + w[..., None] * acc
     out = o / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    out = out.reshape(B, 1, H, D).to(q.dtype)
+    if return_lse:
+        return out, (m_star + torch.log(l)).reshape(B, 1, H)
+    return out
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("decode_attention")
     fn = lib.decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -123,45 +133,49 @@ def kernel_split_plan(B: int, H: int, Hkv: int, L: int, D: int,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
-                     cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+                     cache_len: Union[int, torch.Tensor],
+                     return_lse: bool = False):
     """q: (B, 1, H, D); caches: (B, Hkv, L, D), H % Hkv == 0; float32 or
     bfloat16; cache_len: () int32 on q's device (an int is placed there).
-    CUDA tensors go through the kernel (its launches are counted in
-    ``decode_attention.launches``); CPU tensors through the plain
-    version; fake tensors through the shape-only branch (``route``)."""
-    if route.is_sharded(q, k_cache, v_cache, cache_len):
-        return route.sharded(
-            decode_attention,
-            (("b", None, "h", None), ("b", "kv", None, None),
-             ("b", "kv", None, None),
-             () if isinstance(cache_len, torch.Tensor) else None),
-            ("b", None, "h", None), q, k_cache, v_cache, cache_len)
+    Returns (B, 1, H, D) in q's type; with ``return_lse`` also the float32
+    (B, 1, H) log-sum-exp of the scaled scores over the valid positions,
+    -inf where there are none. CUDA tensors go through the kernel (its
+    launches are counted in ``decode_attention.launches``); CPU tensors
+    through the plain version; fake tensors through the shape-only
+    branch (``route``)."""
     return route.call("decode_attention",
-                      lambda: decode_attention_work(q, k_cache), _launch,
-                      decode_attention_plain, _shape_only,
-                      {"cache_len": cache_len}, q, k_cache, v_cache,
-                      differentiable=False)
+                      lambda: decode_attention_work(q, k_cache, return_lse),
+                      _launch, decode_attention_plain, _shape_only,
+                      {"cache_len": cache_len, "return_lse": return_lse},
+                      q, k_cache, v_cache, differentiable=False)
 
 
-def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor):
+def decode_attention_work(q: torch.Tensor, k_cache: torch.Tensor,
+                          return_lse: bool = False):
     """(flops, bytes) of one call, from the shapes alone: q read and the
     output written once, all L rows of both caches read once, and
-    cache_len; 4 D operations per (query head, row). An upper bound
+    cache_len, and with ``return_lse`` the float32 log-sum-exp written;
+    4 D operations per (query head, row). An upper bound
     where the cache is not full: the kernel reads min(cache_len, L)
     rows, but cache_len lives on the device, and reading it here would
     make the host wait on every step."""
     B, _, H, D = q.shape
     _, Hkv, L, _ = k_cache.shape
     return (4 * D * B * H * L,
-            (2 * B * H * D + 2 * B * Hkv * L * D) * q.element_size() + 4)
+            (2 * B * H * D + 2 * B * Hkv * L * D) * q.element_size() + 4
+            + (4 * B * H if return_lse else 0))
 
 
-def _shape_only(q, k_cache, v_cache, cache_len) -> torch.Tensor:
-    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+def _shape_only(q, k_cache, v_cache, cache_len, return_lse=False):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if return_lse:
+        return out, torch.empty(q.shape[:3], dtype=torch.float32,
+                                device=q.device)
+    return out
 
 
 def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+            cache_len: Union[int, torch.Tensor], return_lse: bool = False):
     """The kernel's launch, counted in ``decode_attention.launches``."""
     B, one, H, D = q.shape
     _, Hkv, L, _ = k_cache.shape
@@ -198,18 +212,21 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache, v_cache = (build.vector_ready(t) for t in (k_cache, v_cache))
     cache_len = cache_len.contiguous()
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
+    lse = (build.output((B, 1, H), torch.float32, q.device)
+           if return_lse else None)
     strides = (ctypes.c_int64 * 8)(
         q.stride(0), *[t.stride(i) for t in (k_cache, v_cache)
                        for i in (0, 1, 2)], out.stride(0))
     err = lib.decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), B, H, Hkv, L, D, strides,
+        cache_len.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, H, Hkv, L, D, strides,
         float(D ** -0.5), code, build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed at "
                            f"{shape} {q.dtype}: CUDA error {err}")
     decode_attention.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 decode_attention.launches = 0

@@ -11,9 +11,7 @@ body. On a CPU tensor it runs the plain version of ``kernels/ref.py`` in
 the kernel layout (B, H, S, D). A call that must record a gradient
 goes through ``recompute.PlainRecompute``: the kernel forward, the plain
 version's autograd backward (the reference's ``custom_vjp`` rule). Fake
-tensors take a shape-only branch and DTensors run on their local shards,
-along batch and query heads, a rank's KV heads those its query heads
-read (``route``).
+tensors take a shape-only branch (``route``).
 """
 
 from __future__ import annotations
@@ -61,11 +59,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version; fake tensors through the shape-only branch (``route``). On
     the card a call that needs a gradient gets it from the plain version
     (``recompute``)."""
-    if route.is_sharded(q, k, v):
-        lab, kv = ("b", None, "h", None), ("b", None, "kv", None)
-        return route.sharded(
-            lambda q, k, v: flash_attention(q, k, v, causal, window),
-            (lab, kv, kv), lab, q, k, v)
     return route.call("flash_attention",
                       lambda: flash_attention_work(q, k, causal, window),
                       _launch, flash_attention_plain, _shape_only,

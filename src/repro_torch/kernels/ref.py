@@ -21,7 +21,6 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import route
 
 NEG_INF = float("-inf")
 
@@ -51,9 +50,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+                     cache_len: Union[int, torch.Tensor],
+                     return_lse: bool = False):
     """One query token per head against a cache masked to
-    ``pos < min(cache_len, L)``."""
+    ``pos < min(cache_len, L)``. With ``return_lse`` also the float32
+    (B, H) log-sum-exp of the scaled scores over those positions (-inf
+    where there are none)."""
     B, H, D = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     if Hkv != H:
@@ -68,7 +70,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n = min(int(cache_len), L)
     s = torch.where(pos < n, s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhl,bhld->bhd", p, v)
+    out = torch.einsum("bhl,bhld->bhd", p, v)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -170,7 +173,7 @@ def slstm_cell(state: Tuple[torch.Tensor, ...], wx_t: torch.Tensor,
                        R32).reshape(B, 4 * d)
     pre = wx_t.to(torch.float32) + rec + b32[None]
     z_t, i_t, f_t, o_t = torch.split(pre, d, dim=-1)
-    f_log = route.elementwise(F.logsigmoid, f_t)
+    f_log = F.logsigmoid(f_t)
     m_new = torch.maximum(f_log + m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(f_log + m - m_new)

@@ -7,8 +7,7 @@ version of ``kernels/ref.py``. The two agree to float rounding: the
 kernel sums the squares in another order. A call that must record a
 gradient goes through ``recompute.PlainRecompute``: the kernel forward,
 the plain version's autograd backward (the reference's ``custom_vjp``
-rule). Fake tensors take a shape-only branch and DTensors run on their
-local shards (``route``).
+rule). Fake tensors take a shape-only branch (``route``).
 """
 
 from __future__ import annotations
@@ -110,11 +109,6 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
     version; fake tensors through the shape-only branch (``route``). On
     the card a call that needs a gradient gets it from the plain version
     (``recompute``)."""
-    if route.is_sharded(x, gamma):
-        rows = tuple(f"d{i}" for i in range(x.dim() - 1))
-        return route.sharded(lambda x, g: rmsnorm(x, g, eps),
-                             (rows + (None,), (None,)), rows + (None,),
-                             x, gamma)
     return route.call("rmsnorm", lambda: rmsnorm_work(x, gamma), _launch,
                       rmsnorm_plain, _shape_only, {"eps": eps}, x, gamma)
 

@@ -16,8 +16,7 @@ autograd backward, from hs and the final state to wx, R, b and the
 incoming state (the reference has no vjp here and trains xLSTM through
 its XLA scan; the port has no such switch, so it takes the same rule as
 the other kernels). Fake tensors take a shape-only branch (the dry run
-never steps the recurrence) and DTensors run on their local shards,
-along batch (``route``).
+never steps the recurrence; ``route``).
 """
 
 from __future__ import annotations
@@ -237,14 +236,6 @@ def slstm_scan(wx: torch.Tensor, R: torch.Tensor, b: torch.Tensor,
     tensors through the shape-only branch (``route``). On the card a call
     that needs a gradient gets it from the plain version
     (``recompute``)."""
-    if route.is_sharded(wx, R, b, *state):
-        row, whole = ("b", None), (None, None, None, None)
-        hs, *out = route.sharded(
-            lambda wx, R, b, *st: _flat(slstm_scan)(wx, R, b, *st,
-                                                    n_heads=n_heads),
-            (("b", None, None), whole, (None,)) + (row,) * 4,
-            (("b", None, None),) + (row,) * 4, wx, R, b, *state)
-        return hs, tuple(out)
     hs, *out = route.call("slstm_scan",
                           lambda: slstm_scan_work(wx, R, n_heads),
                           _flat(_launch), _flat(slstm_scan_plain),

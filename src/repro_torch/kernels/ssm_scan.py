@@ -17,8 +17,7 @@ PyTorch for the tests. A call that must record a gradient goes through
 ``recompute.PlainRecompute``: the kernel forward, the plain version's
 autograd backward (the reference's ``custom_vjp`` rule), y and the final
 state both differentiable. Fake tensors take a shape-only branch (the
-dry run never steps the recurrence) and DTensors run on their local
-shards, along batch and heads (``route``).
+dry run never steps the recurrence; ``route``).
 """
 
 from __future__ import annotations
@@ -300,13 +299,6 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     shape-only branch (``route``). On the card a call that needs a
     gradient gets it from the plain version (``recompute``)."""
     chunk_length(x.shape[1], chunk)
-    if route.is_sharded(x, dt, A, Bm, Cm):
-        return route.sharded(
-            lambda *a: ssm_scan(*a, chunk=chunk),
-            (("b", None, "h", None), ("b", None, "h"), ("h",),
-             ("b", None, None), ("b", None, None)),
-            (("b", None, "h", None), ("b", "h", None, None)),
-            x, dt, A, Bm, Cm)
     return route.call("ssm_scan", lambda: ssm_scan_work(x, Bm, chunk),
                       _launch, _plain_out, _shape_only, {"chunk": chunk},
                       x, dt, A, Bm, Cm)

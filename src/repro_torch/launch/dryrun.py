@@ -51,6 +51,7 @@ from repro_torch.models.transformer import abstract_params
 from repro_torch.roofline.analysis import model_flops, roofline_terms
 from repro_torch.roofline.cost import CostCounter
 from repro_torch.sharding import rules as R
+from repro_torch.sharding.partition import cache_placements
 
 
 def fake_world(n: int) -> None:
@@ -144,8 +145,8 @@ def trace_step(cfg, shape: ShapeConfig, mesh, ec: ExecConfig,
     B = shape.global_batch
     if shape.kind == "decode":
         ispecs = {"tokens": (R.batch_axes(axes, B), None)}
-        ispecs["cache"] = R.cache_placements(cfg, axes, ec, B,
-                                             specs["cache"])
+        ispecs["cache"] = cache_placements(cfg, axes, ec, B,
+                                           specs["cache"])
     else:
         ispecs = {k: v for k, v in R.input_placements(
             axes, B, needs_memory(cfg)).items() if k in specs}

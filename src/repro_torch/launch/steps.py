@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.config import ExecConfig, ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import softmax_cross_entropy, whole_along
+from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.sharding.partition import whole
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.base import apply_updates, value_and_grad
 from repro_torch.optim.schedule import warmup_cosine
@@ -72,7 +73,7 @@ def make_serve_step(cfg: ModelConfig, ec: ExecConfig, ring: bool = False):
         logits, cache = T.decode_step(cfg, ec, params, cache, tokens,
                                       ring=ring)
         # on a sharded vocabulary the pick needs the whole row
-        logits = whole_along(logits[:, :, : cfg.vocab], -1)
+        logits = whole(logits[:, :, : cfg.vocab], -1)
         nxt = torch.argmax(logits, dim=-1)
         return nxt.to(torch.int32), cache
     return serve_step

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch._guards import detect_fake_mode
 
 from repro_torch import rng
-from repro_torch.kernels import ops, route
+from repro_torch.kernels import ops
 from repro_torch.roofline import cost
 
 
@@ -92,155 +92,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
-def _rows_whole(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor t (B, ..., n) with the dims between its first and last
-    whole on every rank (gathered where sharded) and no partial sum: its
-    rows then fold into (B ..., n) as DTensor places them. Anything else
-    comes back as it is."""
-    if not route.is_sharded(t):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    pl = [Replicate() if p.is_partial() or (
-        isinstance(p, Shard) and 0 < p.dim < t.dim() - 1) else p
-        for p in t.placements]
-    return t if pl == list(t.placements) else t.redistribute(
-        t.device_mesh, pl)
-
-
-class _RowsWholeGrad(torch.autograd.Function):
-    """The identity forward; the backward applies ``_rows_whole`` to the
-    gradient, which DTensor may return sharded along a middle dim (a
-    partial sum reduce-scattered there), where the product's rows could
-    not fold it."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _rows_whole(g)
-
-
-def _for_product(x: torch.Tensor, w: torch.Tensor):
-    """DTensors x (..., d) and w (d, n) placed for their product, on each
-    mesh dim: where x's rows are sharded (a batch), w is whole there (a
-    sharded weight gathered, as FSDP gathers it); else, where w's rows
-    are sharded, x's columns are the rank's own (a local slice), and
-    where w's columns are sharded, x is whole along d. Otherwise DTensor
-    would move x's rows to w instead, or gather w and multiply it whole,
-    or compute each rank's weight gradient whole, on every rank."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
-        return x, w
-    last = Shard(x.dim() - 1)
-    rows = [isinstance(px, Shard) and px.dim < x.dim() - 1
-            for px in x.placements]
-    wpl = [Replicate() if r else pw for r, pw in zip(rows, w.placements)]
-    xpl = [last if pw == Shard(0) and px == Replicate()
-           else Replicate() if pw == Shard(1) and px == last else px
-           for px, pw in zip(x.placements, wpl)]
-    if xpl != list(x.placements):
-        x = x.redistribute(x.device_mesh, xpl)
-    if wpl != list(w.placements):
-        w = w.redistribute(w.device_mesh, wpl)
-    return x, w
-
-
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) by w (d, n) as one product over the rows of x: what
-    ``torch.matmul`` folds to for a dense x. A DTensor's ``matmul`` of a
-    decode step's (B, 1, d) broadcasts w to a batched product instead,
-    copying the weight shard once per row. On a DTensor x the rows fold
-    only with no middle dim sharded (``_rows_whole``), in the forward
-    and, for the gradient, in the backward; a partial sum (a residual
-    stream after a row-parallel product) is summed first, as DTensor
-    would otherwise gather w and run the whole product on every rank;
-    and x is placed for w's sharding (``_for_product``)."""
-    if not route.is_sharded(x, w):
-        if x.dim() <= 2:
-            return torch.matmul(x, w)
-        y = torch.matmul(x.reshape(-1, x.shape[-1]), w)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
-    x, w = _for_product(_rows_whole(x), w)
+    ``torch.matmul`` folds to for a dense x."""
     if x.dim() <= 2:
         return torch.matmul(x, w)
     y = torch.matmul(x.reshape(-1, x.shape[-1]), w)
-    return _RowsWholeGrad.apply(y.reshape(*x.shape[:-1], w.shape[-1]))
-
-
-def _heads_whole(x: torch.Tensor, n: int) -> torch.Tensor:
-    """A DTensor x (..., n hd) sharded along its last dim over ways that
-    do not divide n heads, gathered whole along it; else x."""
-    if not route.is_sharded(x):
-        return x
-    from torch.distributed.tensor import Shard
-    last = x.dim() - 1
-    ways = 1
-    for i, p in enumerate(x.placements):
-        if isinstance(p, Shard) and p.dim == last:
-            ways *= x.device_mesh.size(i)
-    return whole_along(x, last) if n % ways else x
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    """x (..., n hd) as (..., n, hd). A DTensor sharded along the last dim
-    over ways that do not divide n heads (xlstm's 4 heads on 16
-    ``model`` ranks) is gathered whole along it first."""
-    x = _heads_whole(x, n)
+    """x (..., n hd) as (..., n, hd)."""
     return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
 
 
-class _HeadsWholeGrad(torch.autograd.Function):
-    """The identity forward; the backward gathers a gradient of (...,
-    n hd) that ``split_heads`` would gather."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, n: int) -> torch.Tensor:
-        ctx.n = n
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _heads_whole(g, ctx.n), None
-
-
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """x (..., n, hd) as (..., n hd). On a DTensor, a gradient that comes
-    back sharded over ways that do not divide the n heads is gathered
-    before it is split into them again."""
-    n = x.shape[-2]
-    y = x.reshape(*x.shape[:-2], n * x.shape[-1])
-    return _HeadsWholeGrad.apply(y, n) if route.is_sharded(y) else y
-
-
-def whole_along(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """``t`` with its dim ``dim`` whole on every rank: a DTensor sharded
-    along it is gathered there (a collective the cost counter sees);
-    anything else comes back as it is."""
-    if not route.is_sharded(t):
-        return t
-    from torch.distributed.tensor import Replicate, Shard
-    dim %= t.dim()
-    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
-          for p in t.placements]
-    return t.redistribute(t.device_mesh, pl)
+    """x (..., n, hd) as (..., n hd)."""
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, contract=linear) -> torch.Tensor:
+    """``contract``: the product of x by an input weight (``Ranks.
+    contract`` on a rank whose weights' rows are split)."""
     dt = x.dtype
-    g = linear(x, w_gate.to(dt))
-    u = linear(x, w_up.to(dt))
+    g = contract(x, w_gate.to(dt))
+    u = contract(x, w_up.to(dt))
     return linear(F.silu(g) * u, w_down.to(dt))
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
-             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+             w_down: torch.Tensor, b_down: Optional[torch.Tensor],
+             contract=linear) -> torch.Tensor:
+    """As ``swiglu``; without ``b_down`` the output bias is left out."""
     dt = x.dtype
-    h = linear(x, w_up.to(dt)) + b_up.to(dt)
+    h = contract(x, w_up.to(dt)) + b_up.to(dt)
     h = F.gelu(h, approximate="tanh")
-    return linear(h, w_down.to(dt)) + b_down.to(dt)
+    h = linear(h, w_down.to(dt))
+    return h if b_down is None else h + b_down.to(dt)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -32,12 +32,18 @@ in float32: a bfloat16 router would route on rounded logits). The
 auxiliary loss is float32: Switch load balance plus the ST-MoE z-loss,
 with exact expert counts.
 
-Moving tokens into and out of the buffers is a gather (an index select)
-where no gradient flows, and a one-hot product where one does: a
-gather's backward is a scatter-add, which is not deterministic on the
-card. Both give the same values: each product has one term that is not
-zero. The slot of every buffer entry is found on the device, so serving
-never waits for the card.
+Moving tokens into and out of the buffers is a gather: an index where
+no gradient flows, and an ``index_select`` where one does, whose
+backward (an ``index_add``) is deterministic on the card under
+``torch.use_deterministic_algorithms``. The slot of every buffer entry
+is found on the device, so serving never waits for the card.
+
+On a mesh (``sharding/partition.py``) ``moe_ffn`` runs on a rank's
+local shards: where the experts are split over the model ranks, each
+rank dispatches only the assignments to its own experts, as
+``expert_parallel_local`` does, and its output is its part of the sum
+over the model ranks; where each expert's MLP width is split, each rank
+runs every expert on its columns.
 """
 
 from __future__ import annotations
@@ -49,8 +55,8 @@ import torch.nn.functional as F
 
 from repro_torch.compat import current_mesh
 from repro_torch.config import ExecConfig, ModelConfig, MoEConfig
-from repro_torch.kernels import route
 from repro_torch.models import params as P
+from repro_torch.sharding.ranks import PLAIN, Ranks
 
 
 def padded_experts(m: MoEConfig) -> int:
@@ -80,12 +86,12 @@ def moe_param_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
 
 
 def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig,
-            over_ranks=None):
+            ranks: Ranks = PLAIN, batch=()):
     """x32: (T, d) float32 -> top-k weights (T, k) float32, expert ids
-    (T, k) int64 and the auxiliary loss. ``over_ranks`` averages a
-    statistic of these T tokens over the ranks that hold the other
-    tokens of the batch (``_sharded_router``); none by default."""
-    logits = x32 @ w.to(torch.float32)                       # (T, E_logical)
+    (T, k) int64 and the auxiliary loss. Its token means are averaged
+    over the mesh dims ``batch`` of ``ranks``, whose ranks hold the
+    batch's other tokens."""
+    logits = ranks.contract(x32, w.to(torch.float32))       # (T, E_logical)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, m.top_k, dim=-1)
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
@@ -95,46 +101,13 @@ def _router(x32: torch.Tensor, w: torch.Tensor, m: MoEConfig,
     f_e = counts / (T * m.top_k)
     p_e = torch.mean(probs, dim=0)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    if over_ranks is not None:
-        f_e, p_e, z_loss = (over_ranks(t) for t in (f_e, p_e, z_loss))
+    for i in batch:
+        f_e, p_e, z_loss = (_MeanOverRanks.apply(t, (ranks.mesh, i),
+                                                 ranks.mesh.size(i))
+                            for t in (f_e, p_e, z_loss))
     lb_loss = m.n_experts * torch.sum(f_e * p_e)
     aux = m.load_balance_loss * lb_loss + m.router_z_loss * z_loss
     return top_w, top_e, aux
-
-
-def _sharded_router(x: torch.Tensor, w: torch.Tensor, m: MoEConfig):
-    """``_router`` on DTensors, x (B, S, d): each rank routes the tokens
-    of its batch rows, and the auxiliary loss's token means are averaged
-    over the batch's ranks. DTensor alone would shard the flattened
-    tokens of the gradient over more ranks than the batch rows (on
-    2x16x16), which then do not fold back into rows. Returns top-k
-    weights and ids (B, S, k) and aux."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    mesh = x.device_mesh
-    B, S, d = x.shape
-    whole = [Replicate()] * mesh.ndim
-    bdims = [i for i, p in enumerate(x.placements) if p == Shard(0)]
-    xpl = [Shard(0) if i in bdims else Replicate() for i in range(mesh.ndim)]
-    wgrad = [Partial() if i in bdims else Replicate()
-             for i in range(mesh.ndim)]
-    if not isinstance(w, DTensor):
-        w = DTensor.from_local(w, mesh, whole, run_check=False)
-
-    def over_ranks(t):
-        for i in bdims:
-            t = _MeanOverRanks.apply(t, (mesh, i), mesh.size(i))
-        return t
-
-    def local(xl, wl):
-        b = xl.shape[0]
-        top_w, top_e, aux = _router(xl.reshape(b * S, d), wl, m, over_ranks)
-        return top_w.reshape(b, S, -1), top_e.reshape(b, S, -1), aux
-
-    return local_map(local, out_placements=(xpl, xpl, whole),
-                     in_placements=(xpl, whole),
-                     in_grad_placements=(xpl, wgrad), device_mesh=mesh,
-                     redistribute_inputs=True)(x.to(torch.float32), w)
 
 
 def capacity(m: MoEConfig, S: int) -> int:
@@ -148,13 +121,7 @@ def _routes(te: torch.Tensor, E: int, cap: int):
     """te: (B, S, k) expert ids -> (src, dst). ``src`` (B, E cap): the
     token (0..S-1) that fills each buffer slot (expert-major), S where
     the slot stays empty; ``dst`` (B, S k): the slot e cap + c each
-    assignment reads its result from, E cap where it was dropped. On a
-    DTensor each rank routes its batch rows (``route.sharded``): the
-    slot table is built in place."""
-    if route.is_sharded(te):
-        return route.sharded(lambda t: _routes(t, E, cap),
-                             (("b", None, None),),
-                             (("b", None), ("b", None)), te)
+    assignment reads its result from, E cap where it was dropped."""
     B, S, k = te.shape
     N = S * k
     e = te.reshape(B, N)
@@ -174,61 +141,31 @@ def _routes(te: torch.Tensor, E: int, cap: int):
 
 def _pick(src: torch.Tensor, idx: torch.Tensor, grad: bool) -> torch.Tensor:
     """Rows ``idx`` (B, m) of ``src`` (B, n, d), a zero row where idx is
-    n: a gather, or, where a gradient flows, a one-hot product (the
-    module docstring). On DTensors each rank picks from its batch rows
-    (``route.sharded``), the one-hot product over its share of d on the
-    mesh dims that do not shard the batch."""
+    n: an index, or ``index_select`` where a gradient flows (the module
+    docstring)."""
     B, n, d = src.shape
-    if grad and route.is_sharded(src, idx):
-        return _sharded_onehot_pick(src, idx)
-    if grad:
-        ids = torch.arange(n, device=src.device)
-        return torch.matmul((idx[..., None] == ids).to(src.dtype), src)
-    if route.is_sharded(src, idx):
-        return route.sharded(lambda s, i: _pick(s, i, grad),
-                             (("b", None, None), ("b", None)),
-                             ("b", None, None), src, idx)
     rows = torch.cat([src.reshape(B * n, d), src.new_zeros(1, d)])
     base = torch.arange(B, device=src.device)[:, None] * n
-    return rows[torch.where(idx < n, idx + base, B * n)]
+    flat = torch.where(idx < n, idx + base, B * n)
+    if grad:
+        return rows.index_select(0, flat.reshape(-1)).reshape(
+            *flat.shape, d)
+    return rows[flat]
 
 
-def _sharded_onehot_pick(src: torch.Tensor,
-                         idx: torch.Tensor) -> torch.Tensor:
-    """``_pick``'s one-hot product on DTensors: src (B, n, d) keeps its
-    batch sharding and is split along d (a local slice) on the other mesh
-    dims where d divides, so that no rank computes another's columns."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh = (src if isinstance(src, DTensor) else idx).device_mesh
-    if not isinstance(src, DTensor):
-        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
-    pl, ways = [], 1
-    for i, p in enumerate(src.placements):
-        if p == Shard(0):
-            pl.append(p)
-        elif src.shape[2] % (ways * mesh.size(i)) == 0:
-            ways *= mesh.size(i)
-            pl.append(Shard(2))
-        else:
-            pl.append(Replicate())
-    return route.sharded(lambda s, i: _pick(s, i, True),
-                         (("b", None, "d"), ("b", None)), ("b", None, "d"),
-                         src.redistribute(mesh, pl), idx)
-
-
-def _experts_swiglu(p, buf: torch.Tensor) -> torch.Tensor:
+def _experts_swiglu(p, buf: torch.Tensor,
+                    ranks: Ranks = PLAIN) -> torch.Tensor:
     """buf: (E, rows, d) -> (E, rows, d); one batched SwiGLU product per
     expert over all its rows."""
     dt = buf.dtype
-    g = torch.bmm(buf, p["w_gate"].to(dt))
-    u = torch.bmm(buf, p["w_up"].to(dt))
+    g = ranks.contract_batched(buf, p["w_gate"].to(dt))
+    u = ranks.contract_batched(buf, p["w_up"].to(dt))
     return torch.bmm(F.silu(g) * u, p["w_down"].to(dt))
 
 
 def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
-                 top_e: torch.Tensor, m: MoEConfig,
-                 buckets: int = 0) -> torch.Tensor:
+                 top_e: torch.Tensor, m: MoEConfig, buckets: int = 0,
+                 ranks: Ranks = PLAIN) -> torch.Tensor:
     """x: (B, S, d) -> (B S, d): dispatch into the capacity buffers, the
     experts, and the weighted combine. ``p`` holds E expert stacks; the
     ids run over ``buckets`` (E by default), and an id past E (the
@@ -249,7 +186,8 @@ def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
     buf = _pick(x, src, grad)                               # (B, E cap, d)
     # (B, E, cap, d) -> (E, B cap, d): each expert's rows of every batch row
     buf = buf.reshape(B, E, cap, d).transpose(0, 1).reshape(E, B * cap, d)
-    out = _experts_swiglu(p, buf)
+    out = _experts_swiglu(p, buf, ranks)
+    d = out.shape[-1]               # the rank's columns of d under a split
     out = out.reshape(E, B, cap, d).transpose(0, 1).reshape(B, E * cap, d)
     y = _pick(out, dst, grad)                               # (B, S k, d)
     # each token's k contributions, each product rounded to the compute
@@ -262,17 +200,24 @@ def _scatter_moe(p, x: torch.Tensor, top_w: torch.Tensor,
 
 
 def _dense_moe(p, xt: torch.Tensor, top_w: torch.Tensor,
-               top_e: torch.Tensor, m: MoEConfig) -> torch.Tensor:
+               top_e: torch.Tensor, m: MoEConfig, buckets: int = 0,
+               ranks: Ranks = PLAIN) -> torch.Tensor:
     """The oracle: every expert on every token, weighted by the router.
-    On DTensors xt is broadcast over the experts explicitly, as
-    ``matmul`` broadcasts it, into products DTensor can place."""
+    ``p`` holds E expert stacks; the ids run over ``buckets`` (E by
+    default), and an id past E adds nothing."""
     dt = xt.dtype
-    E = padded_experts(m)
-    xe = xt.expand(E, *xt.shape) if route.is_sharded(xt) else xt
-    g = torch.matmul(xe, p["w_gate"].to(dt))                # (E, T, f)
-    u = torch.matmul(xe, p["w_up"].to(dt))
+    E = p["w_gate"].shape[0]
+    if ranks.split:
+        xe = xt.expand(E, *xt.shape)
+        g = ranks.contract_batched(xe, p["w_gate"].to(dt))  # (E, T, f)
+        u = ranks.contract_batched(xe, p["w_up"].to(dt))
+    else:
+        g = torch.matmul(xt, p["w_gate"].to(dt))            # (E, T, f)
+        u = torch.matmul(xt, p["w_up"].to(dt))
     y_all = torch.matmul(F.silu(g) * u, p["w_down"].to(dt))  # (E, T, d)
-    onehot = F.one_hot(top_e, E).to(dt)                     # (T, k, E)
+    onehot = F.one_hot(top_e, buckets or E).to(dt)          # (T, k, E)
+    if buckets > E:
+        onehot = onehot[..., :E]
     w_e = torch.einsum("tk,tke->te", top_w.to(dt), onehot)
     return torch.einsum("te,etd->td", w_e, y_all)
 
@@ -393,12 +338,15 @@ def _expert_parallel_moe(p, x: torch.Tensor, m: MoEConfig, mesh):
     return y, aux
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
-            ec: ExecConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, ec: ExecConfig,
+            ranks: Ranks = PLAIN, batch=()
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d), aux_loss float32 scalar). The
     ``scatter`` path, ``dense`` where ``ec.moe_impl`` says so, and
     ``expert_parallel`` where it says so and the ambient mesh allows
-    (the module docstring)."""
+    (the module docstring). On a rank (``ranks``, the batch's mesh dims
+    ``batch``) y is its part of the sum over the model ranks, and aux
+    carries a gradient from model rank 0 only."""
     m = cfg.moe
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
@@ -407,18 +355,32 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
         y, aux = _expert_parallel_moe(p, x, m, mesh)
         y = y.reshape(B * S, d)
     else:
-        if route.is_sharded(x):
-            top_w, top_e, aux = _sharded_router(x, p["router"], m)
-            top_w, top_e = top_w.reshape(B * S, -1), top_e.reshape(B * S, -1)
-        else:
-            top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m)
+        # a rank's means over the batch ranks (``_router``'s plain call
+        # is the single device's)
+        over = () if ranks is PLAIN else (ranks, batch)
+        top_w, top_e, aux = _router(xt.to(torch.float32), p["router"], m,
+                                    *over)
+        if ranks.model_rank != 0:
+            aux = aux.detach()          # the gradient through aux, once
+        E, buckets = p["w_gate"].shape[0], 0
+        if E < padded_experts(m):
+            # this rank's experts of the model ranks' split: the others'
+            # assignments go to a drop bucket, as in expert_parallel_local
+            first = ranks.model_rank * E
+            mine = (top_e >= first) & (top_e < first + E)
+            top_e = torch.where(mine, top_e - first, E)
+            top_w = torch.where(mine, top_w, 0.0)
+            buckets = E + 1
         if ec.moe_impl == "dense":
-            y = _dense_moe(p, xt, top_w, top_e, m)
+            y = _dense_moe(p, xt, top_w, top_e, m, buckets, ranks)
         else:
-            y = _scatter_moe(p, x, top_w, top_e, m)
-    if m.n_shared_experts:
+            y = _scatter_moe(p, x, top_w, top_e, m, buckets, ranks)
+    shared = m.n_shared_experts and (
+        p["shared_down"].shape[0] < cfg.d_ff * m.n_shared_experts
+        or ranks.model_rank == 0)
+    if shared:
         dt = xt.dtype
-        g = torch.matmul(xt, p["shared_gate"].to(dt))
-        u = torch.matmul(xt, p["shared_up"].to(dt))
+        g = ranks.contract(xt, p["shared_gate"].to(dt))
+        u = ranks.contract(xt, p["shared_up"].to(dt))
         y = y + torch.matmul(F.silu(g) * u, p["shared_down"].to(dt))
-    return y.reshape(B, S, d), aux
+    return y.reshape(B, S, y.shape[-1]), aux

@@ -10,20 +10,29 @@ O(1) recurrent update in plain torch, as in the reference.
 Recurrence (per head h, channels P, state N):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t x_t
     y_t = C_t · h_t + D * x_t
+
+On a mesh whose ``model`` ranks split the heads (``sharding/
+partition.py``) a rank runs the block on its heads: its columns of z, x
+and dt, all of B and C, its conv channels; y is normalized whole and
+multiplied by the rank's rows of out_proj.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels import ops, route
+from repro_torch.kernels import ops
 from repro_torch.models import params as P
 from repro_torch.models.layers import linear, rms_norm
+from repro_torch.sharding.ranks import PLAIN, Ranks
+
+# the block's leaves, in the order ``sharding/partition.py`` passes them
+PARAMS = ("in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D", "norm",
+          "out_proj")
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -53,47 +62,13 @@ def mamba2_param_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv in x's type, tap by tap as the reference sums
-    it. x: (B, S, C); w: (W, C). On DTensors each rank convolves its
-    batch rows and, where w's channels are sharded, its channels
-    (``local_map``: DTensor has no placement for the padding on some
-    versions)."""
-    if route.is_sharded(x, w, b):
-        return _sharded_causal_conv(x, w, b)
+    it. x: (B, S, C); w: (W, C)."""
     W, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, W - 1, 0))
     out = xp[:, :S] * w[0].to(x.dtype)
     for i in range(1, W):
         out = out + xp[:, i: i + S] * w[i].to(x.dtype)
     return out + b.to(x.dtype)
-
-
-def _sharded_causal_conv(x: torch.Tensor, w: torch.Tensor,
-                         b: torch.Tensor) -> torch.Tensor:
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    mesh = next(t for t in (x, w, b) if isinstance(t, DTensor)).device_mesh
-    whole = [Replicate()] * mesh.ndim
-    x, w, b = (t if isinstance(t, DTensor)
-               else DTensor.from_local(t, mesh, whole, run_check=False)
-               for t in (x, w, b))
-    C = x.shape[2]
-    ways, chans = 1, []
-    for i, p in enumerate(w.placements):
-        if p == Shard(1) and C % (ways * mesh.size(i)) == 0:
-            ways *= mesh.size(i)
-            chans.append(i)
-    xpl = [Shard(2) if i in chans else Shard(0) if p == Shard(0)
-           else Replicate() for i, p in enumerate(x.placements)]
-    wpl = [Shard(1) if i in chans else Replicate() for i in range(mesh.ndim)]
-    bpl = [Shard(0) if i in chans else Replicate() for i in range(mesh.ndim)]
-    wgrad = [q if i in chans else Partial() if xpl[i] == Shard(0)
-             else Replicate() for i, q in enumerate(wpl)]
-    bgrad = [q if i in chans else Partial() if xpl[i] == Shard(0)
-             else Replicate() for i, q in enumerate(bpl)]
-    return local_map(_causal_conv, out_placements=xpl,
-                     in_placements=(xpl, wpl, bpl),
-                     in_grad_placements=(xpl, wgrad, bgrad),
-                     device_mesh=mesh, redistribute_inputs=True)(x, w, b)
 
 
 def _split_in_proj(cfg: ModelConfig, proj: torch.Tensor):
@@ -122,97 +97,58 @@ def _mix(proj: torch.Tensor, conv_w, conv_b, dt_bias, A_log, D, dims,
     return y * F.silu(z), h_final, conv_in
 
 
-def _forward(p, x: torch.Tensor, cfg: ModelConfig):
-    """``mamba2_forward`` that also returns the conv's input (B, S, C),
-    whose last W - 1 rows seed the decode cache (on sharded heads only
-    those rows, ``_sharded_forward``)."""
-    if route.is_sharded(x, p["in_proj"]) and _head_dims(p["A_log"]):
-        return _sharded_forward(p, x, cfg)
-    proj = linear(x, p["in_proj"].to(x.dtype))
-    y, h_final, conv_in = _mix(proj, p["conv_w"], p["conv_b"],
-                               p["dt_bias"], p["A_log"], p["D"],
-                               ssm_dims(cfg), cfg.ssm.chunk)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return linear(y, p["out_proj"].to(y.dtype)), h_final, conv_in
+def _cols(t: torch.Tensor, *spans) -> torch.Tensor:
+    """The spans (start, width) of t's last dim, side by side."""
+    return torch.cat([t.narrow(-1, a, b) for a, b in spans], dim=-1)
 
 
-def _head_dims(per_head: torch.Tensor) -> list:
-    """The mesh dims along which a DTensor leaf of one entry per head
-    (``A_log``) is sharded."""
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(per_head, DTensor):
-        return []
-    return [i for i, p in enumerate(per_head.placements) if p == Shard(0)]
-
-
-def _sharded_forward(p, x: torch.Tensor, cfg: ModelConfig):
-    """``_forward`` on DTensors whose heads are sharded n ways (the
-    reference's ``ssm_heads`` rule): each rank runs ``_mix`` on its heads,
-    from its columns of z, x and dt of a whole in_proj, all of B and C,
-    and the conv channels of its x and of B and C. The in_proj's columns
-    are sharded as one block that the five parts do not split evenly,
-    so DTensor alone would gather its output and run the block whole on
-    every rank. x's gradient is summed over the head ranks inside
-    (``route.SumGradOverRanks``). y is normalized whole, and each rank
-    multiplies its columns of it by its rows of out_proj (``linear``).
-    Only the last W - 1 rows of the conv's input come back."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+def _head_split(cfg: ModelConfig, ranks: Ranks):
+    """(heads, their channels, the x channels' start) of this rank's
+    heads: all of them on one rank."""
     d_inner, H, Pd, N = ssm_dims(cfg)
-    dims = _head_dims(p["A_log"])
-    mesh = p["A_log"].device_mesh
-    n = math.prod(mesh.size(i) for i in dims)
-    hl, dl = H // n, H // n * Pd
-    keep = cfg.ssm.conv_width - 1
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    xpl = [q if i not in dims and q == Shard(0) else Replicate()
-           for i, q in enumerate(x.placements)]
-    batch = [i for i, q in enumerate(xpl) if q == Shard(0)]
+    hl = H // ranks.n_model
+    return hl, hl * Pd, ranks.model_rank * hl * Pd
 
-    def pl(head, other):
-        return [head if i in dims else other(i) for i in range(mesh.ndim)]
 
-    whole = pl(Replicate(), lambda i: Replicate())
-    per_head = pl(Shard(0), lambda i: Replicate())
-    # a rank's gradients are its part of the sum over the ranks that
-    # share an input
-    shared = pl(Partial(), lambda i: Partial() if i in batch
-                else Replicate())
-    head_grad = pl(Shard(0), lambda i: Partial() if i in batch
-                   else Replicate())
+def _forward(p, x: torch.Tensor, cfg: ModelConfig, ranks: Ranks = PLAIN):
+    """``mamba2_forward`` that also returns the conv's input (B, S, C),
+    whose last W - 1 rows seed the decode cache: the rank's heads'
+    channels of x and all of B and C, on a rank of heads split over the
+    model ranks (in_proj, the conv and the norm whole)."""
+    d_inner, H, Pd, N = ssm_dims(cfg)
+    hl, dl, c0 = _head_split(cfg, ranks)
+    w, cw, cb = p["in_proj"], p["conv_w"], p["conv_b"]
+    if dl < d_inner:
+        conv = ((c0, dl), (d_inner, 2 * N))
+        w = _cols(w, (c0, dl), (d_inner + c0, dl), (2 * d_inner, 2 * N),
+                  (2 * d_inner + 2 * N + c0 // Pd, hl))
+        cw, cb = _cols(cw, *conv), _cols(cb, *conv)
+    proj = ranks.contract(x, w.to(x.dtype))
+    y, h_final, conv_in = _mix(proj, cw, cb, p["dt_bias"], p["A_log"],
+                               p["D"], (dl, hl, Pd, N), cfg.ssm.chunk)
+    return _out(p, y, cfg, ranks), h_final, conv_in
 
-    def local(xl, w, cw, cb, dtb, alog, dv):
-        r = route.mesh_rank(mesh, dims)
-        xl = route.SumGradOverRanks.apply(xl, [(mesh, i) for i in dims])
 
-        def cols(t, *spans):
-            return torch.cat([t.narrow(-1, a, b) for a, b in spans], dim=-1)
-        w = cols(w, (r * dl, dl), (d_inner + r * dl, dl),
-                 (2 * d_inner, 2 * N), (2 * d_inner + 2 * N + r * hl, hl))
-        conv = ((r * dl, dl), (d_inner, 2 * N))
-        y, h, conv_in = _mix(linear(xl, w.to(xl.dtype)), cols(cw, *conv),
-                             cols(cb, *conv), dtb, alog, dv,
-                             (dl, hl, Pd, N), cfg.ssm.chunk)
-        tail = conv_in[:, -keep:]
-        return y, h, tail[..., :dl], tail[..., dl:]
+def _out(p, y: torch.Tensor, cfg: ModelConfig, ranks: Ranks):
+    """The norm over the whole inner width (the rank's channels gathered
+    first) and out_proj on the rank's rows."""
+    y = rms_norm(ranks.gather(y, -1), p["norm"], cfg.norm_eps)
+    rows = p["out_proj"].shape[0]
+    if rows < y.shape[-1]:
+        y = y.narrow(-1, ranks.model_rank * rows, rows)
+    return linear(y, p["out_proj"].to(y.dtype))
 
-    y, h, x_tail, bc_tail = local_map(
-        local,
-        out_placements=(pl(Shard(2), xpl.__getitem__),
-                        pl(Shard(1), xpl.__getitem__),
-                        pl(Shard(2), xpl.__getitem__), xpl),
-        in_placements=(xpl, whole, whole, whole, per_head, per_head,
-                       per_head),
-        in_grad_placements=(xpl, shared, shared,
-                            shared, head_grad, head_grad, head_grad),
-        device_mesh=mesh, redistribute_inputs=True)(
-        x, p["in_proj"], p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
-        p["D"])
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return (linear(y, p["out_proj"].to(y.dtype)), h,
-            torch.cat([x_tail, bc_tail], dim=-1))
+
+def conv_tail(conv_in: torch.Tensor, cfg: ModelConfig,
+              ranks: Ranks = PLAIN) -> torch.Tensor:
+    """The last W - 1 rows of the conv's input (``_forward``), all its
+    channels: the rank's x channels gathered over the model ranks."""
+    tail = conv_in[:, -(cfg.ssm.conv_width - 1):]
+    if ranks.model is None:
+        return tail
+    dl = _head_split(cfg, ranks)[1]
+    return torch.cat([ranks.gather(tail[..., :dl], -1), tail[..., dl:]],
+                     dim=-1)
 
 
 def mamba2_forward(p, x: torch.Tensor, cfg: ModelConfig
@@ -236,13 +172,13 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype,
 
 
 def mamba2_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                       cfg: ModelConfig
+                       cfg: ModelConfig, ranks: Ranks = PLAIN
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrent update. x: (B, 1, d). Returns (y, new cache);
     the cache passed in is not modified."""
     d_inner, H, Pd, N = ssm_dims(cfg)
     f32 = torch.float32
-    proj = linear(x, p["in_proj"].to(x.dtype))
+    proj = ranks.contract(x, p["in_proj"].to(x.dtype))
     z, xin, Bm, Cm, dt = _split_in_proj(cfg, proj)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)                # (B,1,C)
     window = torch.cat([cache["conv"], conv_in], dim=1)       # (B,W,C)
@@ -264,3 +200,45 @@ def mamba2_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = rms_norm(y, p["norm"], cfg.norm_eps)
     out = linear(y, p["out_proj"].to(y.dtype))
     return out, {"state": h, "conv": window[:, 1:]}
+
+
+def decode_into(p, x: torch.Tensor, state: torch.Tensor,
+                conv: torch.Tensor, cfg: ModelConfig,
+                ranks: Ranks = PLAIN) -> torch.Tensor:
+    """``mamba2_decode_step`` with the new state and conv window written
+    into ``state`` and ``conv`` in place; returns y. On a rank of heads
+    split over the model ranks: in_proj's output of the rank's columns
+    gathered whole, the conv window whole (every rank writes the same),
+    the conv, the state and y of the rank's heads."""
+    if ranks.model is None:
+        y, new = mamba2_decode_step(p, x, {"state": state, "conv": conv},
+                                    cfg, ranks)
+        state.copy_(new["state"])
+        conv.copy_(new["conv"])
+        return y
+    d_inner, H, Pd, N = ssm_dims(cfg)
+    hl, dl, c0 = _head_split(cfg, ranks)
+    f32 = torch.float32
+    proj = ranks.contract(x, p["in_proj"].to(x.dtype))
+    if proj.shape[-1] < 2 * d_inner + 2 * N + H:
+        proj = ranks.gather(proj, -1)
+    z, xin, Bm, Cm, dt = _split_in_proj(cfg, proj)
+    window = torch.cat([conv, torch.cat([xin, Bm, Cm], dim=-1)], dim=1)
+    spans = ((c0, dl), (d_inner, 2 * N))
+    w = _cols(p["conv_w"], *spans).to(x.dtype)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", _cols(window, *spans), w)
+                      + _cols(p["conv_b"], *spans).to(x.dtype))
+    xin, Bm, Cm = torch.split(conv_out, [dl, N, N], dim=-1)
+    dt = F.softplus(dt[:, 0, c0 // Pd: c0 // Pd + hl].to(f32)
+                    + p["dt_bias"].to(f32))
+    A = -torch.exp(p["A_log"].to(f32))
+    xh = xin.reshape(-1, hl, Pd).to(f32)
+    h = state * torch.exp(dt * A[None, :])[:, :, None, None]
+    h = h + (dt[:, :, None, None] * Bm.to(f32)[:, None, None, :]
+             * xh[..., None])
+    y = torch.einsum("bn,bhpn->bhp", Cm.to(f32), h)
+    y = y + xh * p["D"].to(f32)[None, :, None]
+    y = y.reshape(-1, 1, dl).to(x.dtype) * F.silu(z.narrow(-1, c0, dl))
+    state.copy_(h)
+    conv.copy_(window[:, 1:])
+    return _out(p, y, cfg, ranks)

@@ -37,12 +37,17 @@ AdamW's small updates are not lost to bfloat16 rounding. A float32 draw
 cast to bfloat16 is the bfloat16 leaf bit for bit.
 
 A forward that records a gradient looks tokens (and learned positions)
-up in their table by a one-hot product (the same values: one term of
-each sum is not zero), so that its backward is a product too and
-deterministic on the card, not a scatter-add; without a gradient it
-gathers rows. ``ExecConfig.remat`` checkpoints each superblock
-(``torch.utils.checkpoint``), as the reference checkpoints its scanned
-body. Decode caches are updated in place.
+up in their table by ``index_select``, whose backward (an ``index_add``)
+is deterministic on the card under ``torch.use_deterministic_algorithms``;
+without a gradient it gathers rows. ``ExecConfig.remat`` checkpoints
+each superblock (``torch.utils.checkpoint``), as the reference checkpoints
+its scanned body. Decode caches are updated in place.
+
+Each block runs through ``sharding/partition.py``, which on DTensors
+runs the block's body here on each rank's local shards (``ranks``: its
+place on the mesh) and on plain tensors runs it once. So a body sees
+local shapes: its query heads, KV heads, columns and experts are the
+rank's (the weights' local widths say how many).
 """
 
 from __future__ import annotations
@@ -55,7 +60,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import (ATTN, CROSS_ATTN, MAMBA2, MLSTM, SLSTM,
                                 ExecConfig, ModelConfig)
-from repro_torch.kernels import route
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import params as P
@@ -64,6 +68,8 @@ from repro_torch.models import xlstm as XL
 from repro_torch.models.layers import (gelu_mlp, linear, merge_heads,
                                        rms_norm, rope_tables, rotate,
                                        round_up, split_heads, swiglu)
+from repro_torch.sharding import partition as PT
+from repro_torch.sharding.ranks import PLAIN, Ranks
 
 Tree = Any
 DEFAULT_EXEC = ExecConfig()
@@ -207,10 +213,6 @@ def abstract_params(cfg: ModelConfig, ec: ExecConfig = DEFAULT_EXEC) -> Tree:
 # Blocks (full-sequence path)
 # ---------------------------------------------------------------------------
 
-def _heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return split_heads(x, n)
-
-
 def _layer(tree: Tree, i: int) -> Tree:
     """Superblock ``i``'s slice of a stacked tree (views, no copies)."""
     if isinstance(tree, torch.Tensor):
@@ -233,31 +235,79 @@ def _write(dst: Tree, src: Tree) -> None:
             _write(dst[k], src[k])
 
 
-def _mlp(bp, x: torch.Tensor, cfg: ModelConfig, ec: ExecConfig):
-    """(y, aux): a MoE MLP's auxiliary loss, 0.0 for the others."""
+def _ffn(bp, gamma: torch.Tensor, x: torch.Tensor, cfg: ModelConfig,
+         ec: ExecConfig, ranks: Ranks = PLAIN, batch=()):
+    """The MLP on rms_norm(x, gamma): (y, aux), a MoE MLP's auxiliary
+    loss, 0.0 for the others. A GELU MLP's output bias is left to the
+    caller (``partition.ffn`` adds it once the ranks' parts are summed)."""
+    h = rms_norm(x, gamma, cfg.norm_eps)
     if cfg.moe is not None:
-        return M.moe_ffn(bp, x, cfg, ec)
+        return M.moe_ffn(bp, h, cfg, ec, ranks, batch)
     if cfg.mlp_kind == "gelu":
-        return gelu_mlp(x, bp["w_up"], bp["b_up"], bp["w_down"],
-                        bp["b_down"]), 0.0
-    return swiglu(x, bp["w_gate"], bp["w_up"], bp["w_down"]), 0.0
+        return gelu_mlp(h, bp["w_up"], bp["b_up"], bp["w_down"], None,
+                        ranks.contract), 0.0
+    return swiglu(h, bp["w_gate"], bp["w_up"], bp["w_down"],
+                  ranks.contract), 0.0
 
 
-def _qkv(bp, x: torch.Tensor, cfg: ModelConfig):
+def _kv_group(n_q: int, cfg: ModelConfig, ranks: Ranks):
+    """(first, count) of the KV heads that this rank's n_q query heads
+    read, the query heads split over the model ranks."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = ranks.model_rank * n_q
+    if G % n_q == 0:
+        return first // G, 1
+    if n_q % G == 0:
+        return first // G, n_q // G
+    raise ValueError(f"{n_q} query heads a rank do not cover whole groups "
+                     f"of {G}: {cfg.arch_id} on {ranks.n_model} model ranks")
+
+
+def _kv_weight(w: torch.Tensor, n_q: int, cfg: ModelConfig,
+               ranks: Ranks) -> torch.Tensor:
+    """The K or V weight's columns for the KV heads that this rank's n_q
+    query heads read: all of w's where it holds the rank's shard of the
+    KV heads or the rank holds every query head, else those of the
+    rank's group (more model ranks than KV heads: mistral's 8 on 16)."""
+    hd = cfg.resolved_head_dim
+    if n_q == cfg.n_heads or w.shape[1] != cfg.n_kv_heads * hd:
+        return w
+    first, n = _kv_group(n_q, cfg, ranks)
+    return w.narrow(1, first * hd, n * hd)
+
+
+def _whole_kv(t: torch.Tensor, n_q: int, cfg: ModelConfig,
+              ranks: Ranks) -> torch.Tensor:
+    """K or V (..., n, hd) of the rank's KV heads as all n_kv heads where
+    ``_kv_weight`` took the rank's group (gathered over the model ranks,
+    one copy of each head kept); else as it is."""
+    if n_q == cfg.n_heads or t.shape[-2] * ranks.n_model == cfg.n_kv_heads:
+        return t
+    G = cfg.n_heads // cfg.n_kv_heads
+    t = ranks.gather(t, -2)
+    return t[..., :: G // n_q, :] if G % n_q == 0 else t
+
+
+def _qkv(bp, x: torch.Tensor, cfg: ModelConfig, ranks: Ranks = PLAIN):
     hd = cfg.resolved_head_dim
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
-    q = _heads(linear(h, bp["wq"].to(h.dtype)), cfg.n_heads, hd)
-    k = A.project_kv(h, bp["wk"], cfg.n_kv_heads, hd, bp["wq"])
-    v = A.project_kv(h, bp["wv"], cfg.n_kv_heads, hd, bp["wq"])
+    n_q = bp["wq"].shape[1] // hd
+    q = split_heads(ranks.contract(h, bp["wq"].to(h.dtype)), n_q)
+    k, v = (split_heads(ranks.contract(h, w.to(h.dtype)), w.shape[1] // hd)
+            for w in (_kv_weight(bp[n], n_q, cfg, ranks)
+                      for n in ("wk", "wv")))
     return q, k, v
 
 
 def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
                     causal: bool = True, window: Optional[int] = None,
-                    return_kv: bool = False):
-    """``rope``: the stack's ``rope_tables`` for x's positions, None where
-    q and k are not rotated (learned positions, the encoder)."""
-    q, k, v = _qkv(bp, x, cfg)
+                    collect: bool = False, ranks: Ranks = PLAIN,
+                    cdtype=None):
+    """The block's output; with ``collect`` also its K and V in the cache
+    layout (B, Hkv, S, hd), in ``cdtype``, all KV heads of the rank's
+    cache. ``rope``: the stack's ``rope_tables`` for x's positions, None
+    where q and k are not rotated (learned positions, the encoder)."""
+    q, k, v = _qkv(bp, x, cfg, ranks)
     if rope is not None:
         q = rotate(q, rope)
         k = rotate(k, rope)
@@ -267,23 +317,39 @@ def _self_attention(bp, x: torch.Tensor, rope, cfg: ModelConfig,
         o = A.bidirectional_attention(q, k, v)
     o = merge_heads(o)
     out = linear(o, bp["wo"].to(o.dtype))
-    if return_kv:
-        return out, k, v
-    return out
+    if not collect:
+        return out
+    n_q = q.shape[2]
+    return (out,) + tuple(_whole_kv(t, n_q, cfg, ranks).transpose(1, 2)
+                          .to(cdtype) for t in (k, v))
 
 
-def _cross_query(bp, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _cross_query(bp, x: torch.Tensor, cfg: ModelConfig,
+                 ranks: Ranks = PLAIN) -> torch.Tensor:
     h = rms_norm(x, bp["norm_x"], cfg.norm_eps)
-    return _heads(linear(h, bp["wq_x"].to(h.dtype)), cfg.n_heads,
-                  cfg.resolved_head_dim)
+    return split_heads(ranks.contract(h, bp["wq_x"].to(h.dtype)),
+                       bp["wq_x"].shape[1] // cfg.resolved_head_dim)
 
 
-def _memory_kv(bp, memory: torch.Tensor, cfg: ModelConfig):
-    """A CROSS_ATTN block's K and V of the memory, (B, M, Hkv, hd) each
-    (``A.project_kv``'s heads on DTensors)."""
+def _memory_kv(bp, memory: torch.Tensor, cfg: ModelConfig,
+               ranks: Ranks = PLAIN):
+    """A CROSS_ATTN block's K and V of the memory, (B, M, n, hd) each, the
+    KV heads the rank's query heads read."""
     hd = cfg.resolved_head_dim
-    return tuple(A.project_kv(memory, bp[w], cfg.n_kv_heads, hd, bp["wq_x"])
-                 for w in ("wk_x", "wv_x"))
+    n_q = bp["wq_x"].shape[1] // hd
+    return tuple(split_heads(ranks.contract(memory, w.to(memory.dtype)),
+                             w.shape[1] // hd)
+                 for w in (_kv_weight(bp[n], n_q, cfg, ranks)
+                           for n in ("wk_x", "wv_x")))
+
+
+def _memory_entry(bp, memory: torch.Tensor, cfg: ModelConfig,
+                  ranks: Ranks = PLAIN, cdtype=None):
+    """The memory's K and V in the cache layout (B, Hkv, M, hd), all KV
+    heads of the rank's cache."""
+    n_q = bp["wq_x"].shape[1] // cfg.resolved_head_dim
+    return tuple(_whole_kv(t, n_q, cfg, ranks).transpose(1, 2).to(cdtype)
+                 for t in _memory_kv(bp, memory, cfg, ranks))
 
 
 def _cross_out(bp, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -296,12 +362,19 @@ def _cross_out(bp, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _cross_attention(bp, x: torch.Tensor, memory: torch.Tensor,
-                     cfg: ModelConfig):
-    """(out, k, v): the block's cross-attention to ``memory`` and the
-    memory's K/V, which the fused prefill keeps for the decode cache."""
-    k, v = _memory_kv(bp, memory, cfg)
-    o = A.bidirectional_attention(_cross_query(bp, x, cfg), k, v)
-    return _cross_out(bp, o, cfg), k, v
+                     cfg: ModelConfig, ranks: Ranks = PLAIN,
+                     collect: bool = False, cdtype=None):
+    """The block's cross-attention to ``memory``; with ``collect`` also
+    the memory's K/V in the cache layout, which the fused prefill keeps
+    for the decode cache."""
+    k, v = _memory_kv(bp, memory, cfg, ranks)
+    o = A.bidirectional_attention(_cross_query(bp, x, cfg, ranks), k, v)
+    out = _cross_out(bp, o, cfg)
+    if not collect:
+        return out
+    n_q = bp["wq_x"].shape[1] // cfg.resolved_head_dim
+    return (out,) + tuple(_whole_kv(t, n_q, cfg, ranks).transpose(1, 2)
+                          .to(cdtype) for t in (k, v))
 
 
 def _apply_block(kind: str, bp, x: torch.Tensor, rope, memory,
@@ -315,40 +388,37 @@ def _apply_block(kind: str, bp, x: torch.Tensor, rope, memory,
     its conv (``_store`` writes it into the cache)."""
     entry = None
     if kind in ATTN_KINDS:
+        h = PT.attention(bp, x, rope, cfg, collect=collect, cdtype=ec.cdtype)
         if collect:
-            h, k, v = _self_attention(bp, x, rope, cfg, return_kv=True)
-            k, v = (A.whole_kv(t, cfg.n_kv_heads) for t in (k, v))
-            entry = {"k": k.transpose(1, 2).to(ec.cdtype),
-                     "v": v.transpose(1, 2).to(ec.cdtype)}
-            x = x + h
-        else:
-            x = x + _self_attention(bp, x, rope, cfg)
+            h, k, v = h
+            entry = {"k": k, "v": v}
+        x = x + h
         if kind == CROSS_ATTN:
-            h, mk, mv = _cross_attention(bp, x, memory, cfg)
-            x = x + h
+            h = PT.cross_attention(bp, x, memory, cfg, collect=collect,
+                                   cdtype=ec.cdtype)
             if collect:
-                mk, mv = (A.whole_kv(t, cfg.n_kv_heads) for t in (mk, mv))
-                entry["ck"] = mk.transpose(1, 2).to(ec.cdtype)
-                entry["cv"] = mv.transpose(1, 2).to(ec.cdtype)
-        h, aux = _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
-                      cfg, ec)
+                h, entry["ck"], entry["cv"] = h
+            x = x + h
+        h, aux = PT.ffn(bp["mlp"], bp["norm2"], x, cfg, ec)
         return x + h, aux, entry
     if kind == MAMBA2:
-        h, state, conv_in = SSM._forward(bp, x, cfg)
-        w = cfg.ssm.conv_width
+        out = PT.mamba2(bp, x, cfg, collect=collect)
     elif kind == MLSTM:
-        h, state, conv_in = XL._mlstm_forward(bp, x, cfg,
-                                              chunked=ec.mlstm_chunked)
-        w = cfg.xlstm.conv_width
+        out = PT.mlstm(bp, x, cfg, chunked=ec.mlstm_chunked,
+                       collect=collect)
     elif kind == SLSTM:
-        h, state = XL.slstm_forward(bp, x, cfg)
-        conv_in = None
+        out = PT.slstm(bp, x, cfg, collect=collect)
     else:
         raise ValueError(kind)
-    if collect:
-        entry = {"state": state}
-        if conv_in is not None:
-            entry["conv"] = conv_in[:, -(w - 1):]
+    if not collect:
+        return x + out, 0.0, None
+    h, *rest = out
+    if kind == SLSTM:
+        entry = {"state": tuple(rest)}
+    elif kind == MLSTM:
+        entry = {"state": tuple(rest[:3]), "conv": rest[3]}
+    else:
+        entry = {"state": rest[0], "conv": rest[1]}
     return x + h, 0.0, entry
 
 
@@ -367,62 +437,36 @@ def _store(slot: Dict[str, Tree], entry: Dict[str, Tree]) -> None:
             _write(dst, val)
 
 
-def _unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
+def _logits(cfg: ModelConfig, x: torch.Tensor, gamma: torch.Tensor,
+            table: torch.Tensor, ranks: Ranks = PLAIN) -> torch.Tensor:
+    """The final norm and the logits: ``table`` is the embedding (tied,
+    read transposed) or the unembedding."""
+    x = rms_norm(x, gamma, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return linear(x, params["embed"].to(x.dtype).t())
-    return linear(x, params["unembed"].to(x.dtype))
+        return ranks.contract(x, table.to(x.dtype).t())
+    return ranks.contract(x, table.to(x.dtype))
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """Rows ``tokens`` of the embedding ``table`` in ``dtype``: a gather,
-    or, where the table records a gradient, a one-hot product (see the
-    module docstring). On DTensors each rank looks its tokens up in its
-    shard of the vocabulary (``_sharded_embed``)."""
-    if route.is_sharded(table, tokens):
-        return _sharded_embed(table, tokens, dtype)
+    by ``index_select`` where the table records a gradient (see the
+    module docstring)."""
     rows = table.to(dtype)
     if not (torch.is_grad_enabled() and table.requires_grad):
         return rows[tokens.long()]
-    ids = torch.arange(rows.shape[0], device=tokens.device)
-    return torch.matmul((tokens.long()[..., None] == ids).to(dtype), rows)
+    ids = tokens.long()
+    return rows.index_select(0, ids.reshape(-1)).reshape(
+        *ids.shape, rows.shape[1])
 
 
-def _sharded_embed(table: torch.Tensor, tokens: torch.Tensor,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """``embed_tokens`` on DTensors (the dry run), vocabulary-parallel:
-    the table keeps its vocabulary sharding (its embed dim is gathered),
-    the tokens their batch sharding; each rank gives the rows of the
-    tokens in its vocabulary shard and zeros for the rest, and the
-    output is their partial sum over the vocabulary's mesh dims."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    from repro_torch.sharding.rules import local_offset
-    mesh = (table if isinstance(table, DTensor) else tokens).device_mesh
-    whole = [Replicate()] * mesh.ndim
-    if not isinstance(table, DTensor):
-        table = DTensor.from_local(table, mesh, whole, run_check=False)
-    if not isinstance(tokens, DTensor):
-        tokens = DTensor.from_local(tokens, mesh, whole, run_check=False)
-    tpl = [p if p == Shard(0) else Replicate() for p in table.placements]
-    kpl = [p if p == Shard(0) and t != Shard(0) else Replicate()
-           for p, t in zip(tokens.placements, tpl)]
-    opl = [Partial() if t == Shard(0) else p for p, t in zip(kpl, tpl)]
-    # the table's gradient: a partial sum over the ranks of the tokens
-    gpl = [Partial() if k == Shard(0) else t for t, k in zip(tpl, kpl)]
-    _, offset = local_offset(table.shape, mesh, tpl)
-
-    def lookup(tab, tok):
-        idx = tok.long() - offset[0]
-        if torch.is_grad_enabled() and tab.requires_grad:
-            # an id outside the shard matches no column: a zero row
-            return embed_tokens(tab, idx, dtype)
-        held = ((idx >= 0) & (idx < tab.shape[0]))[..., None]
-        return tab.to(dtype)[idx.clamp(0, tab.shape[0] - 1)] * held.to(dtype)
-
-    return local_map(lookup, out_placements=opl, in_placements=(tpl, kpl),
-                     in_grad_placements=(gpl, kpl), device_mesh=mesh,
-                     redistribute_inputs=True)(table, tokens)
+def embed_rows(table: torch.Tensor, ids: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``embed_tokens`` on a shard of the table's rows: ``ids`` are
+    offsets into the shard, and an id outside it gives a zero row."""
+    held = ((ids >= 0) & (ids < table.shape[0]))[..., None]
+    rows = embed_tokens(table, ids.clamp(0, table.shape[0] - 1), dtype)
+    return rows * held.to(dtype)
 
 
 def _superblock(x: torch.Tensor, aux, lp: Tree, shared: Optional[Tree], rope,
@@ -460,11 +504,10 @@ def encode(cfg: ModelConfig, ec: ExecConfig, params: Tree,
     x = frames.to(ec.cdtype) + enc["pos"].to(ec.cdtype)[None]
     for i in range(cfg.n_encoder_layers):
         lp = _layer(enc["layers"], i)
-        x = x + _self_attention(lp, x, None, cfg, causal=False)
-        h, _ = _mlp(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps), cfg,
-                    ec)
+        x = x + PT.attention(lp, x, None, cfg, causal=False)
+        h, _ = PT.ffn(lp["mlp"], lp["norm2"], x, cfg, ec)
         x = x + h
-    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+    return PT.norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
@@ -482,11 +525,11 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
     S decode steps)."""
     B, S = tokens.shape
     dev = tokens.device
-    x = embed_tokens(params["embed"], tokens, ec.cdtype)
+    x = PT.embed(params["embed"], tokens, ec.cdtype)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     if cfg.pos_kind == "learned":
-        x = x + embed_tokens(params["pos_embed"],
-                             positions % cfg.learned_pos_len, ec.cdtype)
+        x = x + PT.embed(params["pos_embed"],
+                         positions % cfg.learned_pos_len, ec.cdtype)
     rope = None
     if _rotary(cfg):
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -516,8 +559,7 @@ def forward(cfg: ModelConfig, ec: ExecConfig, params: Tree,
             x, aux = _superblock(x, aux, lp, shared, rope, memory, cfg, ec,
                                  None if cache is None else cache["layers"],
                                  i)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, params, x)
+    logits = PT.unembed(params, x, cfg)
     if isinstance(aux, torch.Tensor):
         aux = aux / max(cfg.n_layers, 1)
     else:                       # no block with an auxiliary loss
@@ -578,6 +620,47 @@ def init_cache(cfg: ModelConfig, ec: ExecConfig, batch: int, cache_len: int,
             "ring": torch.full((), ring, dtype=torch.bool, device=device)}
 
 
+def _attn_decode(bp, x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, slot: torch.Tensor, cache_len,
+                 rope, cfg: ModelConfig, ranks: Ranks = PLAIN,
+                 l_dims=(), L: int = 0) -> torch.Tensor:
+    """One token of a self-attention block against its KV cache, whose
+    shard (the rank's KV heads, or its L positions over ``l_dims``,
+    ``--kv-seq-shard``) the step's K/V are written into in place; the
+    block's output."""
+    q, k, v = _qkv(bp, x, cfg, ranks)
+    if rope is not None:
+        q = rotate(q, rope)
+        k = rotate(k, rope)
+    n_q = q.shape[2]
+    kn, vn = (_whole_kv(t, n_q, cfg, ranks) for t in (k, v))
+    if l_dims:
+        kc, vc = A.cache_write_shard(k_cache, v_cache, kn, vn, slot,
+                                     ranks.rank(l_dims) * k_cache.shape[2])
+    else:
+        kc, vc = A.cache_write(k_cache, v_cache, kn, vn, slot)
+    if k.shape[2] < kc.shape[1]:
+        first, n = _kv_group(n_q, cfg, ranks)
+        kc, vc = kc.narrow(1, first, n), vc.narrow(1, first, n)
+    o = A.decode_attention(q, kc, vc, cache_len, ranks, l_dims, L)
+    o = merge_heads(o)
+    return linear(o, bp["wo"].to(o.dtype))
+
+
+def _cross_decode(bp, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  cross_len, cfg: ModelConfig, ranks: Ranks = PLAIN,
+                  l_dims=(), M: int = 0) -> torch.Tensor:
+    """One token of a CROSS_ATTN block's cross-attention against the
+    cached memory K/V (the rank's shard of them)."""
+    q = _cross_query(bp, x, cfg, ranks)
+    n_q = q.shape[2]
+    if n_q < cfg.n_heads and ck.shape[1] == cfg.n_kv_heads:
+        first, n = _kv_group(n_q, cfg, ranks)
+        ck, cv = ck.narrow(1, first, n), cv.narrow(1, first, n)
+    o = A.decode_attention(q, ck, cv, cross_len, ranks, l_dims, M)
+    return _cross_out(bp, o, cfg)
+
+
 def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, at: Dict,
                   cfg: ModelConfig, ec: ExecConfig) -> torch.Tensor:
     """One-token block application against one superblock's cache slice
@@ -587,35 +670,18 @@ def _decode_block(kind: str, bp, cache_slice, x: torch.Tensor, at: Dict,
     (pos + 1) and ``cross_len`` (the memory's length), each None where
     the stack has no use for it."""
     if kind in ATTN_KINDS:
-        q, k, v = _qkv(bp, x, cfg)
-        if at["rope"] is not None:
-            q = rotate(q, at["rope"])
-            k = rotate(k, at["rope"])
-        kc, vc = A.cache_write(cache_slice["k"], cache_slice["v"],
-                               A.whole_kv(k, cfg.n_kv_heads),
-                               A.whole_kv(v, cfg.n_kv_heads), at["slot"])
-        o = A.decode_attention(q, kc, vc, at["cache_len"])
-        o = merge_heads(o)
-        x = x + linear(o, bp["wo"].to(o.dtype))
+        x = x + PT.attention_decode(bp, x, cache_slice, at, cfg)
         if kind == CROSS_ATTN:
-            o = A.decode_attention(_cross_query(bp, x, cfg),
-                                   cache_slice["ck"], cache_slice["cv"],
-                                   at["cross_len"])
-            x = x + _cross_out(bp, o, cfg)
-        h, _ = _mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps), cfg,
-                    ec)
+            x = x + PT.cross_decode(bp, x, cache_slice, at, cfg)
+        h, _ = PT.ffn(bp["mlp"], bp["norm2"], x, cfg, ec)
         return x + h
     if kind == MAMBA2:
-        h, new = SSM.mamba2_decode_step(bp, x, cache_slice, cfg)
-    elif kind == MLSTM:
-        h, new = XL.mlstm_decode_step(bp, x, cache_slice, cfg)
-    elif kind == SLSTM:
-        h, st = XL.slstm_decode_step(bp, x, cache_slice["state"], cfg)
-        new = {"state": st}
-    else:
-        raise ValueError(kind)
-    _write(cache_slice, new)
-    return x + h
+        return x + PT.mamba2_decode(bp, x, cache_slice, cfg)
+    if kind == MLSTM:
+        return x + PT.mlstm_decode(bp, x, cache_slice, cfg)
+    if kind == SLSTM:
+        return x + PT.slstm_decode(bp, x, cache_slice, cfg)
+    raise ValueError(kind)
 
 
 def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
@@ -627,10 +693,7 @@ def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
     on the device."""
     pos = cache["pos"]
     dev = pos.device
-    if route.is_sharded(params["embed"], tokens):
-        x = _sharded_embed(params["embed"], tokens, ec.cdtype)
-    else:
-        x = params["embed"].to(ec.cdtype)[tokens.long()]
+    x = PT.embed(params["embed"], tokens, ec.cdtype)
     if cfg.pos_kind == "learned":
         row = torch.remainder(pos.to(torch.int64), cfg.learned_pos_len)
         x = x + params["pos_embed"].index_select(0, row.reshape(1)).to(
@@ -656,8 +719,7 @@ def decode_step(cfg: ModelConfig, ec: ExecConfig, params: Tree, cache: Tree,
             name = f"b{j}_{kind}"
             bp = shared if _shared(cfg, kind) else lp[name]
             x = _decode_block(kind, bp, cs[name], x, at, cfg, ec)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, params, x)
+    logits = PT.unembed(params, x, cfg)
     return logits, {"layers": cache["layers"], "pos": at["cache_len"],
                     "ring": cache["ring"]}
 
@@ -676,8 +738,8 @@ def prefill_cross_cache(cfg: ModelConfig, ec: ExecConfig, params: Tree,
         name = f"b{j}_{kind}"
         slot = cache["layers"][name]
         for i in range(cfg.n_superblocks):
-            k, v = (A.whole_kv(t, cfg.n_kv_heads) for t in _memory_kv(
-                _layer(params["layers"][name], i), memory, cfg))
-            slot["ck"][i].copy_(k.transpose(1, 2))
-            slot["cv"][i].copy_(v.transpose(1, 2))
+            k, v = PT.memory_kv(_layer(params["layers"][name], i), memory,
+                                cfg, memory.dtype)
+            slot["ck"][i].copy_(k)
+            slot["cv"][i].copy_(v)
     return cache

@@ -16,11 +16,20 @@ mLSTM stabilized recurrence (per head, head dim P):
     i'  = exp(ĩ_t - m_t);  f' = exp(f̃_t + m_{t-1} - m_t)
     C_t = f' C_{t-1} + i' (k_t ⊗ v_t);   n_t = f' n_{t-1} + i' k_t
     h_t = (C_t^T q_t) / max(|n_t · q_t|, 1)
+
+On a mesh (``sharding/partition.py``) a ``model`` rank runs the mLSTM
+recurrence of its part of the state: where the model ranks are a
+multiple n of the H heads, as the reference's partitioner splits them,
+one head and 1 / (n / H) of v's head dim in the chunked form (the
+prefill and training), and in the decode step the rows of C and n that
+the cache places on the rank (the k side of every head: the
+reference's ranks keep each head's state split over the k dim across
+steps), whose C^T q and n . q are then summed over the ranks. The
+products before the recurrence are split by their columns and gathered.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Tuple
 
 import torch
@@ -30,15 +39,19 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops, route
 from repro_torch.kernels.ref import slstm_cell
 from repro_torch.models import params as P
-from repro_torch.models.layers import (linear, rms_norm, split_heads,
-                                       whole_along)
+from repro_torch.models.layers import linear, rms_norm, split_heads
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding.ranks import PLAIN, Ranks
 
 State = Tuple[torch.Tensor, ...]
 
 # leaves the reference reads in float32 (``.astype(jnp.float32)``), so
 # they keep float32 whatever the compute dtype: the sLSTM's recurrent R
 F32_LEAVES = ("r",)
+# the blocks' leaves, in the order ``sharding/partition.py`` passes them
+MLSTM_PARAMS = ("up_proj", "conv_w", "conv_b", "w_q", "w_k", "w_v",
+                "w_gates", "b_gates", "norm", "down_proj")
+SLSTM_PARAMS = ("w_in", "r", "b", "norm", "ffn_up", "ffn_down")
 
 
 # ---------------------------------------------------------------------------
@@ -69,25 +82,53 @@ def mlstm_param_spec(cfg: ModelConfig) -> Dict[str, P.Leaf]:
     }
 
 
-def _mlstm_qkv_gates(p, x: torch.Tensor, cfg: ModelConfig):
-    """The pre-recurrence compute. x: (B, S, d). Returns q, k, v
-    (B, S, H, P), the raw gates i, f (B, S, H) float32, the output gate's
-    input z and the conv's input xm (both (B, S, d_inner))."""
+def _whole(t: torch.Tensor, width: int, ranks: Ranks) -> torch.Tensor:
+    """t (..., w): where w < ``width`` the rank's columns of the model
+    ranks' split, gathered whole; else t."""
+    return ranks.gather(t, -1) if t.shape[-1] < width else t
+
+
+def _mlstm_qkv_gates(p, x: torch.Tensor, cfg: ModelConfig,
+                     ranks: Ranks = PLAIN, window=None):
+    """The pre-recurrence compute. x: (B, S, d), or the decode step's
+    (B, 1, d) with its conv ``window`` (B, W - 1, d_inner) of earlier
+    inputs. Returns q, k, v (B, S, H, P), or (B, H, P) for a step, the
+    raw gates i, f (B, S, H) or (B, H) float32, the output gate's input
+    z, the conv's input xm (both (B, S, d_inner)) and the new window's
+    inputs (``window`` and xm). A rank of split columns multiplies its
+    columns (of the conv, w_q, w_k, w_v and w_gates' rows) and gathers
+    the results whole."""
     d_inner, H, Pd = mlstm_dims(cfg)
     dt = x.dtype
-    # the columns of xm and z whole on every rank before the split, as in
-    # ``_slstm_ffn``
-    up = whole_along(linear(x, p["up_proj"].to(dt)), -1)
+    up = _whole(ranks.contract(x, p["up_proj"].to(dt)), 2 * d_inner, ranks)
     xm, z = torch.split(up, d_inner, dim=-1)
-    xc = F.silu(_causal_conv(xm, p["conv_w"], p["conv_b"]))
-    q = linear(xc, p["w_q"].to(dt))
-    k = linear(xc, p["w_k"].to(dt)) * (Pd ** -0.5)
-    v = linear(xm, p["w_v"].to(dt))
-    gates = linear(xc, p["w_gates"].to(dt))
+    cw, cb = p["conv_w"], p["conv_b"]
+    mine = xm
+    if cw.shape[1] < d_inner:        # the rank's conv channels
+        mine = xm.narrow(-1, ranks.model_rank * cw.shape[1], cw.shape[1])
+    if window is None:
+        xc_r = F.silu(_causal_conv(mine, cw, cb))
+        xv = xm
+    else:
+        window = torch.cat([window, xm], dim=1)
+        win = window
+        if cw.shape[1] < d_inner:
+            win = window.narrow(-1, ranks.model_rank * cw.shape[1],
+                                cw.shape[1])
+        xc_r = F.silu(torch.einsum("bwc,wc->bc", win, cw.to(dt))
+                      + cb.to(dt))
+        xv = xm[:, 0]
+    xc = _whole(xc_r, d_inner, ranks)
+    q = _whole(linear(xc, p["w_q"].to(dt)), d_inner, ranks)
+    k = _whole(linear(xc, p["w_k"].to(dt)) * (Pd ** -0.5), d_inner, ranks)
+    v = _whole(linear(xv, p["w_v"].to(dt)), d_inner, ranks)
+    gates = linear(xc_r, p["w_gates"].to(dt))
+    if p["w_gates"].shape[0] < d_inner:
+        gates = ranks.reduce(gates)
     gates = gates.to(torch.float32) + p["b_gates"].to(torch.float32)
     i_t, f_t = torch.split(gates, H, dim=-1)
     return (split_heads(q, H), split_heads(k, H), split_heads(v, H), i_t,
-            f_t, z, xm)
+            f_t, z, xm, window)
 
 
 def _mlstm_step(state: State, q, k, v, i_t, f_t):
@@ -95,7 +136,7 @@ def _mlstm_step(state: State, q, k, v, i_t, f_t):
     C, n, m = state
     f32 = torch.float32
     k32, q32 = k.to(f32), q.to(f32)
-    f_log = route.elementwise(F.logsigmoid, f_t)
+    f_log = F.logsigmoid(f_t)
     m_new = torch.maximum(f_log + m, i_t)
     i_p = torch.exp(i_t - m_new)
     f_p = torch.exp(f_log + m - m_new)
@@ -114,10 +155,8 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
     the intra-chunk terms are an (L, L) decay-masked attention, and the
     carried (C, n, m) state is touched once per chunk.
 
-    q/k/v: (B, S, H, P); i_t/f_t: (B, S, H) raw gate pre-activations.
-    On DTensors ``_sharded_chunked``."""
-    if route.is_sharded(q, k, v, i_t, f_t, *state):
-        return _sharded_chunked(q, k, v, i_t, f_t, state, chunk)
+    q/k/v: (B, S, H, P) (v's P may be a slice of the head dim: C then
+    holds those columns); i_t/f_t: (B, S, H) raw gate pre-activations."""
     B, S, H, Pd = q.shape
     L = min(chunk, S)
     assert S % L == 0, (S, L)
@@ -133,7 +172,7 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
         sl = slice(c * L, (c + 1) * L)
         qk_, kk_, vk_, ik_, fk_ = q[:, sl], k[:, sl], v[:, sl], \
             i_t[:, sl], f_t[:, sl]
-        f_log = route.elementwise(F.logsigmoid, fk_)        # (B,L,H)
+        f_log = F.logsigmoid(fk_)                           # (B,L,H)
         cumF = torch.einsum("ij,bjh->bih", ones, f_log)
         M = torch.cummax(ik_ - cumF, dim=1).values
         m = cumF + torch.maximum(m0[:, None, :], M)         # (B,L,H)
@@ -159,81 +198,77 @@ def mlstm_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
     return torch.cat(hs, dim=1), state
 
 
-def _sharded_chunked(q, k, v, i_t, f_t, state: State, chunk: int):
-    """``mlstm_chunked`` on DTensors, each rank on its batch rows. Where
-    the ``model`` ranks are a multiple n of the H heads and split the
-    head dim P into r = n / H slices (xlstm-125m: 4 heads of 384 on 16
-    ranks), as the reference's partitioner splits the heads' columns, a
-    rank runs the recurrence of one head for one slice of v's P: q, k,
-    the gates and n are the head's, C the columns of its slice. hs then
-    comes back as (B, S, n, P / r), sharded n ways: the rank's columns
-    of (B, S, H P). The state is gathered whole. Elsewhere every rank
-    runs all heads: hs (B, S, H, P)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    H, Pd = q.shape[2], q.shape[3]
-    mesh = next(t for t in (q, k, v, i_t, f_t, *state)
-                if isinstance(t, DTensor)).device_mesh
-    whole = [Replicate()] * mesh.ndim
-    q, k, v, i_t, f_t, *state = (
-        t if isinstance(t, DTensor)
-        else DTensor.from_local(t, mesh, whole, run_check=False)
-        for t in (q, k, v, i_t, f_t, *state))
-    batch = [i for i, p in enumerate(q.placements) if p == Shard(0)]
-    rest = [i for i in range(mesh.ndim) if i not in batch]
-    n = math.prod(mesh.size(i) for i in rest)
-    r = n // H if n % H == 0 else 0
-    if not rest or not r or Pd % r:
-        x4, x3 = ("b", None, None, None), ("b", None, None)
-        hs, *st = route.sharded(
-            lambda *a: _flat_chunked(*a, chunk=chunk),
-            (x4, x4, x4, x3, x3, x4, x3, ("b", None)),
-            (x4, x4, x3, ("b", None)), q, k, v, i_t, f_t, *state)
-        return hs, tuple(st)
-    pv = Pd // r
-    xpl = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
-    split = [Shard(0) if i in batch else Shard(1) for i in range(mesh.ndim)]
-    hpl = [Shard(0) if i in batch else Shard(2) for i in range(mesh.ndim)]
-    grad = [Shard(0) if i in batch else Partial() for i in range(mesh.ndim)]
+def _chunk_split(cfg: ModelConfig, ranks: Ranks):
+    """(first head, heads, first column of v, columns) of the recurrence
+    a model rank runs in the chunked form: its share of the heads, or,
+    where the ranks are a multiple r of the heads, one head and 1 / r of
+    v's head dim; every head on one rank, or where neither divides."""
+    d_inner, H, Pd = mlstm_dims(cfg)
+    n, j = ranks.n_model, ranks.model_rank
+    if n > 1 and H % n == 0:
+        return j * (H // n), H // n, 0, Pd
+    if n > 1 and n % H == 0 and Pd % (n // H) == 0:
+        r = n // H
+        return j // r, 1, j % r * (Pd // r), Pd // r
+    return 0, H, 0, Pd
 
-    def local(q, k, v, i_t, f_t, C, n_, m):
-        j = route.mesh_rank(mesh, rest)
-        h, c = j // r, j % r * pv
-        one = lambda t: t.narrow(2, h, 1)                  # noqa: E731
-        hs, (C, n_, m) = mlstm_chunked(
-            one(q), one(k), one(v).narrow(3, c, pv), one(i_t), one(f_t),
-            (C.narrow(1, h, 1).narrow(3, c, pv), n_.narrow(1, h, 1),
-             m.narrow(1, h, 1)), chunk)
-        return hs, C, n_, m
 
-    hs, C, n_, m = local_map(
-        local, out_placements=(hpl, split, split, split),
-        in_placements=(xpl,) * 8, in_grad_placements=(grad,) * 8,
-        device_mesh=mesh, redistribute_inputs=True)(q, k, v, i_t, f_t,
-                                                    *state)
-    # the state whole: each head's r slices of C side by side, n and m
-    # once per head
-    C = whole_along(C, 1)
+def _rank_state(state: State, split) -> State:
+    h0, hl, c0, pv = split
+    C, n, m = state
+    return (C.narrow(1, h0, hl).narrow(3, c0, pv), n.narrow(1, h0, hl),
+            m.narrow(1, h0, hl))
+
+
+def whole_state(state: State, cfg: ModelConfig, ranks: Ranks) -> State:
+    """The chunked form's final state of a rank (``_chunk_split``) as the
+    whole (C, n, m), gathered over the model ranks: each head's slices
+    of C side by side, n and m once per head."""
+    d_inner, H, Pd = mlstm_dims(cfg)
+    h0, hl, c0, pv = _chunk_split(cfg, ranks)
+    if hl == H:
+        return state
+    C, n, m = (ranks.gather(t, 1) for t in state)
+    if pv == Pd:
+        return C, n, m
+    r = Pd // pv
     B = C.shape[0]
     C = C.reshape(B, H, r, Pd, pv).permute(0, 1, 3, 2, 4).reshape(
         B, H, Pd, Pd)
-    return hs, (C, whole_along(n_, 1)[:, ::r], whole_along(m, 1)[:, ::r])
+    return C, n[:, ::r], m[:, ::r]
 
 
-def _flat_chunked(q, k, v, i_t, f_t, C, n, m, chunk: int):
-    hs, state = mlstm_chunked(q, k, v, i_t, f_t, (C, n, m), chunk)
-    return (hs, *state)
+def _mlstm_out(p, hh: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+               ranks: Ranks, dt) -> torch.Tensor:
+    """The norm over the whole inner width (a rank's columns gathered),
+    the output gate and down_proj on the rank's rows."""
+    d_inner = mlstm_dims(cfg)[0]
+    h = _whole(hh.reshape(*hh.shape[:2], -1).to(dt), d_inner, ranks)
+    h = rms_norm(h, p["norm"], cfg.norm_eps)
+    h = h * F.silu(z)
+    rows = p["down_proj"].shape[0]
+    if rows < d_inner:
+        h = h.narrow(-1, ranks.model_rank * rows, rows)
+    return linear(h, p["down_proj"].to(dt))
 
 
 def _mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
-                   chunked: bool = True):
+                   chunked: bool = True, ranks: Ranks = PLAIN):
     """``mlstm_forward`` that also returns the conv's input xm
-    (B, S, d_inner), whose last W - 1 rows seed the decode cache."""
+    (B, S, d_inner), whose last W - 1 rows seed the decode cache. On a
+    rank of split columns the state is the rank's (``_chunk_split``;
+    ``whole_state`` gathers it)."""
     d_inner, H, Pd = mlstm_dims(cfg)
     B, S, _ = x.shape
-    q, k, v, i_t, f_t, z, xm = _mlstm_qkv_gates(p, x, cfg)
+    q, k, v, i_t, f_t, z, xm, _ = _mlstm_qkv_gates(p, x, cfg, ranks)
     if state is None:
         state = mlstm_init_state(cfg, B, x.device)
+    split = _chunk_split(cfg, ranks)
+    h0, hl, c0, pv = split
+    if hl < H:
+        q, k, i_t, f_t = (t.narrow(2, h0, hl) for t in (q, k, i_t, f_t))
+        v = v.narrow(2, h0, hl).narrow(3, c0, pv)
+        state = _rank_state(state, split)
     chunk = cfg.xlstm.chunk
     if chunked and S % min(chunk, S) == 0:
         hh, state = mlstm_chunked(q, k, v, i_t, f_t, state, chunk)
@@ -244,10 +279,7 @@ def _mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
                                     i_t[:, t], f_t[:, t])
             hs.append(ht)
         hh = torch.stack(hs, dim=1)
-    h = hh.reshape(B, S, d_inner).to(x.dtype)
-    h = rms_norm(h, p["norm"], cfg.norm_eps)
-    h = h * F.silu(z)
-    return linear(h, p["down_proj"].to(x.dtype)), state, xm
+    return _mlstm_out(p, hh, z, cfg, ranks, x.dtype), state, xm
 
 
 def mlstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
@@ -279,25 +311,72 @@ def mlstm_init_cache(cfg: ModelConfig, batch: int, dtype, device):
 def mlstm_decode_step(p, x: torch.Tensor, cache, cfg: ModelConfig):
     """x: (B, 1, d). Returns (y, new cache); the cache passed in is not
     modified."""
-    d_inner, H, Pd = mlstm_dims(cfg)
-    dt = x.dtype
-    up = whole_along(linear(x, p["up_proj"].to(dt)), -1)
-    xm, z = torch.split(up, d_inner, dim=-1)                # (B,1,e)
-    window = torch.cat([cache["conv"], xm], dim=1)
-    w = p["conv_w"].to(dt)
-    xc = F.silu(torch.einsum("bwc,wc->bc", window, w) + p["conv_b"].to(dt))
-    q = split_heads(torch.matmul(xc, p["w_q"].to(dt)), H)
-    k = split_heads(torch.matmul(xc, p["w_k"].to(dt)), H) * (Pd ** -0.5)
-    v = split_heads(torch.matmul(xm[:, 0], p["w_v"].to(dt)), H)
-    gates = torch.matmul(xc, p["w_gates"].to(dt))
-    gates = gates.to(torch.float32) + p["b_gates"].to(torch.float32)
-    i_t, f_t = torch.split(gates, H, dim=-1)
+    q, k, v, i_t, f_t, z, _, window = _mlstm_qkv_gates(
+        p, x, cfg, window=cache["conv"])
     state, h = _mlstm_step(cache["state"], q, k, v, i_t, f_t)
-    h = h.reshape(-1, 1, d_inner).to(dt)
-    h = rms_norm(h, p["norm"], cfg.norm_eps)
-    h = h * F.silu(z)
-    y = linear(h, p["down_proj"].to(dt))
-    return y, {"state": state, "conv": window[:, 1:]}
+    return (_mlstm_out(p, h[:, None], z, cfg, PLAIN, x.dtype),
+            {"state": state, "conv": window[:, 1:]})
+
+
+def decode_into(p, x: torch.Tensor, state: State, conv: torch.Tensor,
+                cfg: ModelConfig, ranks: Ranks = PLAIN) -> torch.Tensor:
+    """``mlstm_decode_step`` with the new state and conv window written
+    into ``state`` and ``conv`` in place; returns y. On a rank each of C,
+    n and m is the rank's as the cache places it: its heads, or for C
+    and n its rows of the k side of every head (the products with q of
+    which are then summed over the model ranks); the conv window is
+    whole (every rank writes the same)."""
+    if ranks.model is None:
+        y, new = mlstm_decode_step(p, x, {"state": state, "conv": conv}, cfg)
+        for dst, src in zip(state, new["state"]):
+            dst.copy_(src)
+        conv.copy_(new["conv"])
+        return y
+    d_inner, H, Pd = mlstm_dims(cfg)
+    q, k, v, i_t, f_t, z, _, window = _mlstm_qkv_gates(p, x, cfg, ranks,
+                                                       window=conv)
+    C, n, m = state
+    r = ranks.model_rank
+
+    def mine(t, dim, full):
+        """The rank's span (start, width) of dim ``dim`` of a state
+        tensor whose whole width is ``full``."""
+        w = t.shape[dim]
+        return (r * w if w < full else 0), w
+
+    f32 = torch.float32
+    m_all = ranks.gather(m, 1) if m.shape[1] < H else m
+    f_log = F.logsigmoid(f_t)
+    m_new = torch.maximum(f_log + m_all, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(f_log + m_all - m_new)
+    (h0, hc), (p0, pc) = mine(C, 1, H), mine(C, 2, Pd)
+    qc = q.narrow(1, h0, hc).narrow(2, p0, pc).to(f32)
+    kc = k.narrow(1, h0, hc).narrow(2, p0, pc).to(f32)
+    kv = kc[..., :, None] * v.narrow(1, h0, hc).to(f32)[..., None, :]
+    C_new = (f_p.narrow(1, h0, hc)[..., None, None] * C
+             + i_p.narrow(1, h0, hc)[..., None, None] * kv)
+    num = torch.einsum("bhpr,bhp->bhr", C_new, qc)
+    (g0, hn), (s0, pn) = mine(n, 1, H), mine(n, 2, Pd)
+    qn = q.narrow(1, g0, hn).narrow(2, s0, pn).to(f32)
+    n_new = (f_p.narrow(1, g0, hn)[..., None] * n
+             + i_p.narrow(1, g0, hn)[..., None]
+             * k.narrow(1, g0, hn).narrow(2, s0, pn).to(f32))
+    den = torch.einsum("bhp,bhp->bh", n_new, qn)
+    if pc < Pd:
+        num = ranks.reduce(num)
+    if pn < Pd:
+        den = ranks.reduce(den)
+    if hc < H:
+        num = ranks.gather(num, 1)
+    if hn < H:
+        den = ranks.gather(den, 1)
+    h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+    C.copy_(C_new)
+    n.copy_(n_new)
+    m.copy_(m_new.narrow(1, *mine(m, 1, H)))
+    conv.copy_(window[:, 1:])
+    return _mlstm_out(p, h[:, None], z, cfg, ranks, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -329,27 +408,34 @@ def _slstm_step(p, state: State, wx: torch.Tensor,
                       p["b"].to(torch.float32), cfg.n_heads)
 
 
-def _slstm_ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The post-recurrence norm and gated GELU (tanh form) FFN. On
-    DTensors the up projection's columns, sharded as one block that the
-    gate and up halves split at a rank boundary, are gathered whole
-    before the split, as the reference's partitioner does."""
+def _slstm_ffn(p, h: torch.Tensor, cfg: ModelConfig,
+               ranks: Ranks = PLAIN) -> torch.Tensor:
+    """The post-recurrence norm and gated GELU (tanh form) FFN. On a rank
+    of split columns the up projection's columns, split as one block
+    that the gate and up halves split at a rank boundary, are gathered
+    whole before the split, as the reference's partitioner does, and
+    the product of the rank's rows of ffn_down taken."""
     h = rms_norm(h, p["norm"], cfg.norm_eps)
-    up = whole_along(linear(h, p["ffn_up"].to(h.dtype)), -1)
-    g, u = torch.chunk(up, 2, dim=-1)
-    return linear(F.gelu(g, approximate="tanh") * u,
-                  p["ffn_down"].to(h.dtype))
+    up = ranks.contract(h, p["ffn_up"].to(h.dtype))
+    f_ff = int(cfg.d_model * cfg.xlstm.proj_factor_slstm)
+    g, u = torch.chunk(_whole(up, 2 * f_ff, ranks), 2, dim=-1)
+    a = F.gelu(g, approximate="tanh") * u
+    rows = p["ffn_down"].shape[0]
+    if rows < a.shape[-1]:
+        a = a.narrow(-1, ranks.model_rank * rows, rows)
+    return linear(a, p["ffn_down"].to(h.dtype))
 
 
-def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None):
+def slstm_forward(p, x: torch.Tensor, cfg: ModelConfig, state=None,
+                  ranks: Ranks = PLAIN):
     """x: (B, S, d) -> (y, final state), the recurrence through the
-    ``slstm_scan`` op."""
+    ``slstm_scan`` op (whole on every model rank)."""
     B, S, d = x.shape
-    wx = linear(x, p["w_in"].to(x.dtype))
+    wx = ranks.contract(x, p["w_in"].to(x.dtype))
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
     hs, state = ops.slstm_scan(wx, p["r"], p["b"], state, cfg.n_heads)
-    return _slstm_ffn(p, hs.to(x.dtype), cfg), state
+    return _slstm_ffn(p, hs.to(x.dtype), cfg, ranks), state
 
 
 def slstm_init_state(cfg: ModelConfig, batch: int, device) -> State:
@@ -360,8 +446,19 @@ def slstm_init_state(cfg: ModelConfig, batch: int, device) -> State:
                                       device=device))
 
 
-def slstm_decode_step(p, x: torch.Tensor, state: State, cfg: ModelConfig):
+def slstm_decode_step(p, x: torch.Tensor, state: State, cfg: ModelConfig,
+                      ranks: Ranks = PLAIN):
     """x: (B, 1, d). Returns (y, new state)."""
-    wx = linear(x, p["w_in"].to(x.dtype))[:, 0]
+    wx = ranks.contract(x, p["w_in"].to(x.dtype))[:, 0]
     state = _slstm_step(p, state, wx, cfg)
-    return _slstm_ffn(p, state[2][:, None].to(x.dtype), cfg), state
+    return _slstm_ffn(p, state[2][:, None].to(x.dtype), cfg, ranks), state
+
+
+def slstm_decode_into(p, x: torch.Tensor, state: State, cfg: ModelConfig,
+                      ranks: Ranks = PLAIN) -> torch.Tensor:
+    """``slstm_decode_step`` with the new state written into ``state`` in
+    place; returns y."""
+    y, new = slstm_decode_step(p, x, state, cfg, ranks)
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return y

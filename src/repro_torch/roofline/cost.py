@@ -6,8 +6,9 @@ sees every aten op a rank runs and counts, per device:
 
 * flops: a product (``mm``, ``bmm``, ``addmm``, ``baddbmm``,
   ``convolution`` and its backward) costs 2 x |result| x the contracted
-  dims; an elementwise op (aten's ``pointwise`` tag) |result|; a
-  reduction |operand|;
+  dims; an elementwise op (aten's ``pointwise`` tag) |result|, but for
+  a copy (``clone``, ``copy_``), which computes nothing, as the
+  reference's walker counts XLA's copies; a reduction |operand|;
 * bytes: the operands plus the results of every op that runs a kernel
   (eager torch runs one per op: the walker's "top-level op"); views,
   aliases and allocations move nothing;
@@ -68,6 +69,8 @@ _COLL_KIND = {
 }
 _PRODUCTS = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "convolution",
              "convolution_backward"}
+# pointwise-tagged ops that only move data
+_COPIES = {"clone", "copy", "copy_"}
 _REDUCTIONS = {
     "sum", "mean", "amax", "amin", "max", "min", "prod", "argmax", "argmin",
     "logsumexp", "var", "var_mean", "std", "std_mean", "norm",
@@ -269,7 +272,8 @@ class CostCounter(TorchDispatchMode):
             self.flops += _product_flops(name, args, outs[0])
         elif name in _REDUCTIONS:
             self.flops += max((t.numel() for t in _tensors(args)), default=0)
-        elif torch.Tag.pointwise in func.tags and outs:
+        elif (torch.Tag.pointwise in func.tags and outs
+              and name not in _COPIES):
             self.flops += outs[0].numel()
         return out
 

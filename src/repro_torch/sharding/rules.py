@@ -172,6 +172,16 @@ def _tree_map(fn, tree):
     return type(tree)(_tree_map(fn, v) for v in tree)
 
 
+def _tree_map2(fn, specs, tree):
+    """``fn(spec, leaf)`` over a spec tree and the tensor tree it
+    describes."""
+    if isinstance(tree, torch.Tensor):
+        return fn(specs, tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, specs[k], v) for k, v in tree.items()}
+    return type(tree)(_tree_map2(fn, s, v) for s, v in zip(specs, tree))
+
+
 def placements(spec: Spec, mesh) -> tuple:
     """The DTensor placements of ``spec`` on ``mesh``: ``Shard(dim)`` on
     each mesh dim that a tensor dim's entry names, ``Replicate()`` on the

@@ -444,40 +444,39 @@ def test_dryrun_mlstm_recurrent_flag(flags, chunked, monkeypatch, tmp_path):
 @pytest.mark.parametrize("rank", [0, 3, 5])
 def test_sharded_attention_reads_the_ranks_kv_head(rank):
     """8 query heads over 2 KV heads on a ``model`` axis of 8 (fake group,
-    this process as ``rank``): each rank computes its one query head
-    against the one KV head that head reads, on real CPU tensors, and
-    its shard of the output is the whole call's."""
+    this process as ``rank``): in the attention block's body each rank
+    computes its one query head against the one KV head that head reads
+    (``transformer._kv_group``), on real CPU tensors, and its head of
+    the output is the whole call's, in prefill and in decode."""
+    import dataclasses
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ranks import Ranks
     dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=8)
     try:
         mesh = init_device_mesh("cpu", (8,), mesh_dim_names=("model",))
+        cfg = dataclasses.replace(reduced_config("mistral-nemo-12b"),
+                                  n_heads=8, n_kv_heads=2)
+        first, n = T._kv_group(1, cfg, Ranks(mesh, 0))
+        assert (first, n) == (rank // 4, 1)
         g = torch.Generator().manual_seed(0)
         q = torch.randn(2, 16, 8, 16, generator=g)
         k, v = (torch.randn(2, 16, 2, 16, generator=g) for _ in range(2))
         want = fa.flash_attention(q, k, v)
-        qd = DTensor.from_local(q[:, :, rank:rank + 1], mesh, [Shard(2)],
-                                run_check=False, shape=q.shape,
-                                stride=q.stride())
-        kd, vd = (DTensor.from_local(t, mesh, [Replicate()],
-                                     run_check=False) for t in (k, v))
-        got = fa.flash_attention(qd, kd, vd)
-        assert got.placements == (Shard(2),)
-        torch.testing.assert_close(got.to_local(),
-                                   want[:, :, rank:rank + 1])
+        got = fa.flash_attention(q[:, :, rank:rank + 1],
+                                 k[:, :, first:first + n],
+                                 v[:, :, first:first + n])
+        torch.testing.assert_close(got, want[:, :, rank:rank + 1])
         # decode: q (B, 1, H, D) against (B, Hkv, L, D) caches
         kc, vc = k.transpose(1, 2), v.transpose(1, 2)
         want = da.decode_attention(q[:, :1], kc, vc, 12)
-        qd = DTensor.from_local(q[:, :1, rank:rank + 1], mesh, [Shard(2)],
-                                run_check=False, shape=(2, 1, 8, 16),
-                                stride=q[:, :1].contiguous().stride())
-        kd, vd = (DTensor.from_local(t, mesh, [Replicate()],
-                                     run_check=False) for t in (kc, vc))
-        got = da.decode_attention(qd, kd, vd, 12)
-        torch.testing.assert_close(got.to_local(),
-                                   want[:, :, rank:rank + 1])
+        got = da.decode_attention(q[:, :1, rank:rank + 1],
+                                  kc.narrow(1, first, n),
+                                  vc.narrow(1, first, n), 12)
+        torch.testing.assert_close(got, want[:, :, rank:rank + 1])
     finally:
         dist.destroy_process_group()

@@ -1,16 +1,18 @@
 """The dry run over the reference's grid, on the CPU.
 
-Each module whose records failed to trace under DTensor (the mLSTM's
-``log_sigmoid`` and its 4 heads on 16 ranks, the Mamba2 block's 3-D
-products, the cross-attention's batched products, the MoE slot table
-built in place) has one record traced at full size on 16x16 in this
-process and held to the reference's record of the same cell, which one
-subprocess of ``python -m repro.launch.dryrun`` lowers. Then the K and V
-projections over the rank's own KV heads, on the 8-rank fake world
-(mesh (data 2, model 4)): a rank computes the columns of the one KV head
-its query head reads, and the decode caches stay whole on each rank.
-Last, the mLSTM's chunk loop counted on fake tensors from two chunks
-(``route.steps``) against the whole loop, and ``--against``'s table.
+Records of each block kind (the mLSTM with its 4 heads on 16 ranks, the
+Mamba2 block, cross-attention, the MoE), and the records whose per-rank
+work ``sharding/partition.py`` repaired (the mLSTM decode step,
+``--fsdp`` at batch 1 and in the MoE decode, ``--kv-seq-shard`` decode),
+are traced at full size on 16x16 in this process and held to the
+reference's record of the same cell and flags, which one subprocess of
+the reference's dry run lowers. Then the K and V projections over the
+rank's own KV heads, on the 8-rank fake world (mesh (data 2, model 4)):
+a rank computes the columns of the one KV head its query head reads,
+and the decode caches stay whole on each rank; decode attention over L
+shards on 2 gloo ranks; the mLSTM's chunk loop counted on fake tensors
+from two chunks (``route.steps``) against the whole loop, and
+``--against``'s table.
 """
 
 import contextlib
@@ -31,40 +33,74 @@ from repro_torch.roofline.cost import CostCounter
 
 # (arch, shape) -> the ratio of the port's per-device flops, with the
 # masked attention pairs the reference counts added back, to the
-# reference's, as PERF.md attributes it; each is held within 3% of it
+# reference's, at the default flags, as PERF.md attributes it; each is
+# held within 3% of it
 RECORDS = {
     ("xlstm-125m", "prefill_32k"): 1.0,
-    ("xlstm-125m", "decode_32k"): 1.243,
+    ("xlstm-125m", "decode_32k"): 0.985,
     ("zamba2-2.7b", "prefill_32k"): 1.027,
     ("llama-3.2-vision-11b", "prefill_32k"): 0.990,
     ("granite-moe-1b-a400m", "decode_32k"): 0.999,
 }
-ARCHS = ("xlstm-125m", "zamba2-2.7b", "llama-3.2-vision-11b",
-         "granite-moe-1b-a400m")
-SHAPES = ("prefill_32k", "decode_32k")
+# (flag, arch, shape) -> the same under that flag, for records whose
+# per-rank work was repaired
+FLAG_RECORDS = {
+    ("fsdp", "mistral-nemo-12b", "long_500k"): 0.996,
+    ("fsdp", "qwen2-moe-a2.7b", "decode_32k"): 0.999,
+    ("kv_seq_shard", "mistral-nemo-12b", "decode_32k"): 0.949,
+}
+
+# the reference's dry run of the cells above in one subprocess
+_REFERENCE = """
+import json, sys
+from repro.launch import dryrun as D
+from repro.config import ExecConfig, TrainConfig
+out = []
+for arch, shape, flag in json.loads(sys.argv[1]):
+    ec = ExecConfig(remat=True, **({flag: True} if flag else {}))
+    rec = D.lower_one(arch, shape, False, ec, TrainConfig(remat=True))
+    out.append([arch, shape, flag, rec["flops_per_device"]])
+print(json.dumps(out))
+"""
 
 
 @pytest.fixture(scope="module")
-def reference_records(tmp_path_factory):
-    """The reference's records of exactly ``RECORDS``, from one run of its
-    dry-run CLI: the other cells of the (arch x shape) product are
-    entered in its output file beforehand as done, so that it skips
-    them."""
-    out = tmp_path_factory.mktemp("ref_grid") / "dry.json"
-    skip = [{"arch": a, "shape": s, "mesh": "16x16", "variant": "baseline"}
-            for a in ARCHS for s in SHAPES if (a, s) not in RECORDS]
-    out.write_text(json.dumps(skip))
+def reference_records():
+    """{(arch, shape, flag): the reference's per-device flops} of the
+    cells of ``RECORDS`` (flag "") and ``FLAG_RECORDS``, from one
+    subprocess that lowers each through the reference's dry run."""
+    cells = [[a, s, ""] for a, s in RECORDS]
+    cells += [[a, s, f] for f, a, s in FLAG_RECORDS]
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     res = subprocess.run(
-        [sys.executable, "-m", "repro.launch.dryrun", "--arch",
-         ",".join(ARCHS), "--shape", ",".join(SHAPES), "--mesh", "single",
-         "--out", str(out)], capture_output=True, text=True, env=env,
-        cwd=os.getcwd(), timeout=600)
+        [sys.executable, "-c", _REFERENCE, json.dumps(cells)],
+        capture_output=True, text=True, env=env, cwd=os.getcwd(),
+        timeout=600)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
-    recs = {(r["arch"], r["shape"]): r for r in json.loads(out.read_text())
-            if "flops_per_device" in r}
-    assert set(recs) == set(RECORDS)
+    recs = {(a, s, f): flops for a, s, f, flops in
+            json.loads(res.stdout.strip().splitlines()[-1])}
+    assert set(recs) == {tuple(c) for c in cells}
     return recs
+
+
+def _held(arch, shape, flag, want, reference_records):
+    """The record traced on 16x16 under ``flag`` and its per-device
+    flops, the masked pairs added back (``dryrun.versus``), within 3% of
+    ``want`` times the reference's; returns the record."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as D
+    ec = ExecConfig(remat=True, **({flag: True} if flag else {}))
+    try:
+        rec = D.lower_one(arch, shape, False, ec, TrainConfig(remat=True),
+                          "cpu")
+    finally:
+        dist.destroy_process_group()
+    assert "error" not in rec and rec["flops_per_device"] > 0
+    _, adjusted = D.versus(rec, reference_records[(arch, shape, flag)], ec)
+    assert abs(adjusted / want - 1) <= 0.03, adjusted
+    assert rec["kernel_calls"] and rec["dominant"] in (
+        "compute", "memory", "collective")
+    return rec
 
 
 @pytest.mark.parametrize("arch,shape", sorted(RECORDS))
@@ -76,10 +112,10 @@ def test_record_traces_and_counts_what_the_reference_counts(
 
     * xlstm-125m prefill_32k 1.0: each rank runs the mLSTM recurrence of
       one head for a quarter of v's head dim (4 heads on 16 ranks);
-    * xlstm-125m decode_32k 1.243: a port fault left open (ROADMAP
-      queue 3): every rank runs the mLSTM step's state update for all 4
-      heads, 1.54e8 flops over the reference's, whose ranks split
-      each head's state;
+    * xlstm-125m decode_32k 0.985: each rank updates the k-side rows of
+      every head's mLSTM state that the cache places on it, as the
+      reference's ranks split each head's state (1.243 before, every
+      rank updating all 4 heads);
     * zamba2-2.7b prefill_32k 1.027: each rank runs the Mamba2 block on
       its 5 heads; it also computes all of B and C (128 of in_proj's
       773 columns it multiplies), which the reference splits evenly;
@@ -87,20 +123,35 @@ def test_record_traces_and_counts_what_the_reference_counts(
       decode_32k 0.999: elementwise work counted op by op here and
       fused by XLA.
     """
-    import torch.distributed as dist
-    from repro_torch.launch import dryrun as D
-    try:
-        rec = D.lower_one(arch, shape, False, ExecConfig(remat=True),
-                          TrainConfig(remat=True), "cpu")
-    finally:
-        dist.destroy_process_group()
-    assert "error" not in rec and rec["flops_per_device"] > 0
-    ref = reference_records[(arch, shape)]["flops_per_device"]
-    adjusted = (rec["flops_per_device"] + masked_pairs(
-        get_config(arch), INPUT_SHAPES[shape], 16)) / ref
-    assert abs(adjusted / RECORDS[(arch, shape)] - 1) <= 0.03, adjusted
-    assert rec["kernel_calls"] and rec["dominant"] in (
-        "compute", "memory", "collective")
+    _held(arch, shape, "", RECORDS[(arch, shape)], reference_records)
+
+
+@pytest.mark.parametrize("flag,arch,shape", sorted(FLAG_RECORDS))
+def test_repaired_record_counts_what_the_reference_counts(
+        flag, arch, shape, reference_records):
+    """Under ``--fsdp`` or ``--kv-seq-shard`` the record's per-device
+    flops, the masked pairs added back, are within 3% of the attributed
+    ratio to the reference's, and within 0.9-1.1 (the ratios in
+    brackets were those of the per-op DTensor partition this replaced):
+
+    * --fsdp mistral-nemo-12b long_500k 0.996 (1.365): at batch 1 the
+      K/V projections split their contraction over ``data``, as the
+      reference's do;
+    * --fsdp qwen2-moe-a2.7b decode_32k 0.999 (1.640): the experts'
+      output keeps its batch rows, so the next layers run the rank's 8
+      rows (collective bytes 3.8e9 a device, the reference's 4.7e9;
+      8.55e11 before);
+    * --kv-seq-shard mistral-nemo-12b decode_32k 0.949 (1.045): no plain
+      score pass, the kernel returns the log-sum-exp; the rest is the
+      reference's elementwise cache write over its shard.
+    """
+    want = FLAG_RECORDS[(flag, arch, shape)]
+    rec = _held(arch, shape, flag, want, reference_records)
+    assert 0.9 <= want <= 1.1
+    if flag == "fsdp" and arch == "qwen2-moe-a2.7b":
+        # the experts' output keeps its batch rows: no activations of the
+        # whole batch move
+        assert rec["collective_bytes_per_device"] < 1e10
 
 
 @pytest.fixture
@@ -120,35 +171,34 @@ def world_of_8(request):
 
 @pytest.mark.parametrize("world_of_8", [0, 3, 6], indirect=True)
 def test_kv_projection_covers_the_ranks_kv_head(world_of_8):
-    """4 query heads over 2 KV heads on a (data 2, model 4) mesh: model
-    rank j holds query head j and computes only the columns of KV head
-    j // 2 (real CPU tensors; no collective runs), its shard of a result
-    that holds each KV head twice, sharded over ``model``."""
+    """4 query heads over 2 KV heads on a (data 2, model 4) mesh: in the
+    attention block's body (``transformer._qkv`` with the rank's
+    ``Ranks``) model rank j holds query head j and computes only the
+    columns of KV head j // 2 (real CPU tensors; no collective runs);
+    gathered for the cache, each KV head once."""
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.ranks import PLAIN, Ranks
     mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
     j = world_of_8 % 4
+    cfg = dataclasses.replace(reduced_config("starcoder2-3b"), d_model=16,
+                              n_heads=4, n_kv_heads=2, head_dim=8)
     g = torch.Generator().manual_seed(0)
     d, hd = 16, 8
     x = torch.randn(2, 5, d, generator=g)
-    w = torch.randn(d, 2 * hd, generator=g)
-    wq = torch.randn(d, 4 * hd, generator=g)
-    whole = [Replicate(), Replicate()]
-    xd, wd = (DTensor.from_local(t, mesh, whole, run_check=False)
-              for t in (x, w))
-    wqd = DTensor.from_local(wq[:, j * hd:(j + 1) * hd], mesh,
-                             [Replicate(), Shard(1)], run_check=False,
-                             shape=wq.shape, stride=wq.stride())
-    k = A.project_kv(xd, wd, 2, hd, wqd)
-    assert k.shape == (2, 5, 4, hd)
-    assert k.placements == (Replicate(), Shard(2))
+    bp = {"norm1": torch.ones(d), "wq": torch.randn(d, 4 * hd, generator=g),
+          "wk": torch.randn(d, 2 * hd, generator=g),
+          "wv": torch.randn(d, 2 * hd, generator=g)}
+    local = dict(bp, wq=bp["wq"][:, j * hd:(j + 1) * hd])
+    q, k, v = T._qkv(local, x, cfg, Ranks(mesh, 1))
+    assert q.shape == k.shape == v.shape == (2, 5, 1, hd)
     head = j // 2
+    h = T.rms_norm(x, bp["norm1"], cfg.norm_eps)
     torch.testing.assert_close(
-        k.to_local(), (x @ w[:, head * hd:(head + 1) * hd])[:, :, None])
+        k, (h @ bp["wk"][:, head * hd:(head + 1) * hd])[:, :, None])
     # plain tensors: the whole projection, as before
-    torch.testing.assert_close(A.project_kv(x, w, 2, hd, wq),
-                               (x @ w).reshape(2, 5, 2, hd))
+    _, k, _ = T._qkv(bp, x, cfg, PLAIN)
+    torch.testing.assert_close(k, (h @ bp["wk"]).reshape(2, 5, 2, hd))
 
 
 class _Products(CostCounter):
@@ -170,24 +220,22 @@ def test_decode_step_projects_the_ranks_kv_head_and_keeps_caches_whole(
     """Reduced starcoder2-3b (4 query heads, 2 KV heads of 32) decodes on
     fake tensors on a (data 2, model 4) mesh: each layer's K and V
     products have 32 output columns on a rank (one KV head), as its Q
-    product has, and the caches it writes, with the new rows, hold both
-    KV heads whole on every ``model`` rank."""
+    product has, and the caches each rank writes, with the new rows,
+    hold both KV heads (the rank's batch row of each)."""
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate
     from repro_torch.launch import dryrun as D
     from repro_torch.models import attention as A
     cfg = reduced_config("starcoder2-3b")
     assert (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) == (4, 2, 32)
     mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
     writes = []
-    write = A._sharded_cache_write
+    write = A.cache_write
 
     def record(kc, vc, kn, vn, slot):
-        writes.append((kc.placements, kc.to_local().shape, kn.placements,
-                       kn.to_local().shape))
+        writes.append((tuple(kc.shape), tuple(kn.shape)))
         return write(kc, vc, kn, vn, slot)
 
-    monkeypatch.setattr(A, "_sharded_cache_write", record)
+    monkeypatch.setattr(A, "cache_write", record)
     monkeypatch.setattr(D, "CostCounter", _Products)
     _Products.seen = []
     rec = D.trace_step(cfg, ShapeConfig("d", 64, 4, "decode"), mesh,
@@ -199,9 +247,9 @@ def test_decode_step_projects_the_ranks_kv_head_and_keeps_caches_whole(
     assert _Products.seen.count((d, 32)) == 3 * layers
     assert _Products.seen.count((d, 64)) == 2 * layers + 1
     assert len(writes) == layers
-    for cpl, cshape, npl, nshape in writes:
-        assert cpl[1] == Replicate() and cshape[1] == cfg.n_kv_heads
-        assert npl[1] == Replicate() and nshape[2] == cfg.n_kv_heads
+    for cshape, nshape in writes:
+        assert cshape[:2] == (2, cfg.n_kv_heads)
+        assert nshape[:3] == (2, 1, cfg.n_kv_heads)
     assert rec["collectives"].get("all-gather", 0) > 0
 
 
@@ -209,8 +257,8 @@ def _l_sharded_decode(rank: int, world: int, store_dir: str, out: str):
     """One rank of ``test_decode_over_l_shards_matches_whole_caches``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor, Replicate, Shard
     from repro_torch.models import attention as A
+    from repro_torch.sharding.ranks import Ranks
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(store_dir, "store"), world),
         rank=rank, world_size=world)
@@ -220,18 +268,15 @@ def _l_sharded_decode(rank: int, world: int, store_dir: str, out: str):
         q = torch.randn(2, 1, 4, 8, generator=g)
         k, v = (torch.randn(2, 2, 16, 8, generator=g) for _ in range(2))
         rows = 16 // world
-        kd, vd = (DTensor.from_local(t[:, :, rank * rows:(rank + 1) * rows],
-                                     mesh, [Shard(2)], run_check=False,
-                                     shape=t.shape, stride=t.stride())
-                  for t in (k, v))
-        qd = DTensor.from_local(q, mesh, [Replicate()], run_check=False)
+        kl, vl = (t[:, :, rank * rows:(rank + 1) * rows] for t in (k, v))
         got = {}
         with CostCounter() as counter:
             for n in (3, 11, 16, 40):  # 40: a ring cache that has wrapped
-                o = A.decode_attention(qd, kd, vd,
-                                       torch.full((), n, dtype=torch.int32))
-                got[n] = o.to_local()
+                got[n] = A.decode_attention(
+                    q, kl, vl, torch.full((), n, dtype=torch.int32),
+                    Ranks(mesh), (0,), 16)
         got["collectives"] = counter.collectives
+        got["ops"] = dict(counter.ops)
         if rank == 0:
             torch.save(got, out)
     finally:
@@ -240,21 +285,26 @@ def _l_sharded_decode(rank: int, world: int, store_dir: str, out: str):
 
 def test_decode_over_l_shards_matches_whole_caches(tmp_path):
     """Decode attention on caches whose L positions are split over 2
-    gloo ranks (``kv_seq_shard``) equals the kernel's plain version on
-    the whole caches, for a valid prefix inside the first shard, across
-    both, whole and wrapped, within 1e-6; no rank gathers the caches:
-    the only collectives are all-reduces of a rank's (B, 1, H) weights
-    and (B, 1, H, D) output, 3 a call."""
+    gloo ranks (``kv_seq_shard``, the attention block's body) equals the
+    kernel's plain version on the whole caches, for a valid prefix inside
+    the first shard, across both, whole and wrapped, within 1e-6; no
+    rank gathers the caches: the only collectives are all-reduces of a
+    rank's (B, 1, H) weights and (B, 1, H, D) output, 3 a call, and the
+    log-sum-exp comes from the kernel call (no plain score product)."""
     import torch.multiprocessing as mp
     from repro_torch.kernels import ops
     out = str(tmp_path / "o.pt")
     mp.spawn(_l_sharded_decode, args=(2, str(tmp_path), out), nprocs=2)
     got = torch.load(out)
     colls = got.pop("collectives")
+    counted = got.pop("ops")
     assert colls["all-gather"] == 0
     # per call: max and sum of the weights (2 x 8 floats), the output sum
     # (64 floats); float32, an all-reduce weighted twice
     assert colls["all-reduce"] == 4 * 2 * 4 * (8 + 8 + 64)
+    assert counted["kernel.decode_attention"] == 4
+    assert not any(k.split(".")[-1] in ("bmm", "mm", "einsum")
+                   for k in counted)
     g = torch.Generator().manual_seed(0)
     q = torch.randn(2, 1, 4, 8, generator=g)
     k, v = (torch.randn(2, 2, 16, 8, generator=g) for _ in range(2))

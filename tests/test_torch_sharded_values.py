@@ -14,14 +14,18 @@ gradient, gathered whole, are held to the same calls on plain tensors
 in one process, within 1e-5 (of the leaf's largest magnitude for a
 gradient).
 
-The configs reach each hand-placed path: the mLSTM's heads split over
-ranks by their v columns (2 heads on 4 ``model`` ranks) and its state
-rebuilt whole (``xlstm._sharded_chunked``), the Mamba2 block on its
-heads (``ssm._sharded_forward``, its conv ``_sharded_causal_conv``), the
-MoE router, slot table and one-hot picks per batch shard
-(``moe._sharded_router``, ``_sharded_onehot_pick``), the K and V of the
-rank's own KV head (2 KV heads on 4 ``model`` ranks,
-``attention.project_kv``), and ``layers.linear``'s placements.
+The configs reach each block's per-rank split (``sharding/
+partition.py``): the mLSTM's heads split over ranks by their v columns
+in the chunked form (2 heads on 4 ``model`` ranks) and its state
+gathered whole for the cache, its decode step on the k-side rows of the
+state the cache splits, the Mamba2 block on its heads, the MoE's router
+per batch shard and its experts per model rank, the K and V of the
+rank's own KV head (2 KV heads on 4 ``model`` ranks), and the MLPs'
+columns. On mesh (2, 2) also under ``--fsdp`` (the weights' embed axis
+over ``data``, gathered for the rank's batch rows) for starcoder2 and
+granite-moe, and under ``--kv-seq-shard`` (the caches' L positions over
+``model``, the decode step's attention combined by the kernel's
+log-sum-exp) for starcoder2 and xlstm.
 """
 
 import dataclasses
@@ -37,10 +41,14 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import rope_tables, softmax_cross_entropy
 from repro_torch.optim.base import flatten, value_and_grad
+from repro_torch.sharding import partition as PT
 
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 ARCHS = ("xlstm-125m", "zamba2-2.7b", "granite-moe-1b-a400m",
          "starcoder2-3b")
+# (flag, arch) run on mesh 2x2 besides the default flags
+FLAGGED = (("fsdp", "starcoder2-3b"), ("fsdp", "granite-moe-1b-a400m"),
+           ("kv_seq_shard", "starcoder2-3b"), ("kv_seq_shard", "xlstm-125m"))
 # float64: a one-ulp change of the reduced zamba2's float32 parameters
 # moves its logits by ~3e-4, which would hide a fault of that size
 EC = ExecConfig(compute_dtype="float64")
@@ -101,7 +109,7 @@ def _entries(cfg, params, tokens, whole):
     """What each block of the superblock gives the decode cache in the
     fused prefill (``T._apply_block``'s entry: the K/V whole, the
     recurrent state, the conv's last inputs), on the embedded tokens."""
-    x = T.embed_tokens(params["embed"], tokens, EC.cdtype)
+    x = PT.embed(params["embed"], tokens, EC.cdtype)
     rope = None
     if T._rotary(cfg):
         rope = rope_tables(torch.arange(S, dtype=torch.int32),
@@ -154,6 +162,7 @@ def _rank(rank, world, store_dir, out):
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.compat import use_mesh
     from repro_torch.sharding import rules as R
+    from repro_torch.sharding.partition import cache_placements
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(os.path.join(store_dir, "store"), world),
@@ -177,19 +186,23 @@ def _rank(rank, world, store_dir, out):
                 return (t.full_tensor() if isinstance(t, DTensor)
                         else t).detach()
 
-            for arch in ARCHS:
+            runs = [(arch, "") for arch in ARCHS]
+            if name == "2x2":
+                runs += [(arch, flag) for flag, arch in FLAGGED]
+            for arch, flag in runs:
                 cfg = _config(arch)
+                ec = dataclasses.replace(EC, **{flag: True} if flag else {})
                 params, inputs, cache = _plain(cfg)
                 ispecs = R.input_placements(axes, B, False)
                 ispecs["next"] = ispecs["tokens"]
                 dparams = _tree(place, params,
-                                R.param_placements(cfg, axes, EC))
+                                R.param_placements(cfg, axes, ec))
                 dinputs = {k: place(v, ispecs[k]) for k, v in inputs.items()}
                 dcache = _tree(place, cache,
-                               R.cache_placements(cfg, axes, EC, B, cache))
+                               cache_placements(cfg, axes, ec, B, cache))
                 with use_mesh(mesh), implicit_replication():
-                    got[name, arch] = _run(cfg, dparams, dinputs, dcache,
-                                           whole)
+                    got[name, arch, flag] = _run(cfg, dparams, dinputs,
+                                                 dcache, whole)
         if rank == 0:
             torch.save(got, out)
     finally:
@@ -228,7 +241,19 @@ def _close(got, want, what):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_matches_the_single_process_port(arch, mesh, sharded,
                                                       plain):
-    got, want = sharded[mesh, arch], plain[arch]
+    _matches(sharded[mesh, arch, ""], plain[arch], (mesh, arch))
+
+
+@pytest.mark.parametrize("flag,arch", FLAGGED)
+def test_sharded_step_under_a_flag_matches_the_single_process_port(
+        flag, arch, sharded, plain):
+    """``--fsdp`` and ``--kv-seq-shard`` on mesh (2, 2): the same step,
+    the same bound (the plain step does not read either flag)."""
+    _matches(sharded["2x2", arch, flag], plain[arch], ("2x2", arch, flag))
+
+
+def _matches(got, want, what):
+    mesh, arch = what[:2]
     for key in ("prefill", "loss", "decode"):
         _close(got[key], want[key], (mesh, arch, key))
     assert set(got["grads"]) == set(want["grads"])
